@@ -1,0 +1,13 @@
+"""Hand-written Hopper kernels, their plain PyTorch versions and the
+registry that picks between them by device. Importing this package
+builds nothing: each kernel is compiled at its first CUDA call."""
+from repro_torch.kernels.common import NEG_INF  # noqa: F401
+from repro_torch.kernels.dispatch import (  # noqa: F401
+    BACKENDS,
+    KernelBackend,
+    available_kernels,
+    get_kernel,
+    register_kernel,
+    resolve,
+)
+from repro_torch.kernels.ops import flash_decode  # noqa: F401

@@ -1,0 +1,261 @@
+"""Shared transformer primitives (dense half): RMSNorm, RoPE, grouped-
+query attention, the LoRA projection and the SwiGLU MLP.
+
+Plain functions on tensors; parameters are nested dicts of tensors.
+Layer functions take *unstacked* (single-layer) params — the stacked
+``(L, ...)`` layout and the loop over layers live in
+``repro_torch.models.transformer``.
+
+Shapes follow the JAX package: activations ``(B, S, d)``, per-head
+tensors ``(B, S, H, hd)``.
+
+Dtype promotion: JAX promotes mixed operands of a matrix product
+silently (f32 activations against a bf16 KV cache, bf16 attention
+output against f32 ``wo``); ``torch.matmul`` refuses them. ``_matmul``
+and ``_einsum`` cast both operands to ``torch.promote_types`` first,
+which is what JAX's promotion gives for f32/bf16.
+
+``gqa_decode`` writes the new K/V into the cache **in place** (JAX
+returns an updated copy) and routes the attention through the
+``flash_decode`` kernel for the device of its inputs.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.common import NEG_INF
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.matmul(a.to(dt), b.to(dt))
+
+
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(dt) * scale
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions: (B, S) int -> cos/sin (B, S, head_dim//2) float32."""
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32,
+                        device=positions.device) / half
+    inv_freq = 1.0 / (theta ** exps)
+    ang = positions.float()[..., None] * inv_freq            # (B,S,half)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, hd); cos/sin: (B, S, hd//2). Half-split rotation."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[:, :, None, :].to(x1.dtype)
+    s = sin[:, :, None, :].to(x1.dtype)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Attention core (the plain reference)
+# ---------------------------------------------------------------------------
+
+
+def model_backend(cfg) -> str:
+    """The kernel backend a config asks for (``reference`` when absent,
+    e.g. hand-built test configs)."""
+    return getattr(cfg, "kernel_backend", None) or "reference"
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool = True,
+           window: Optional[int] = None,
+           q_offset: int = 0,
+           kv_valid_len: Optional[torch.Tensor] = None,
+           scale: Optional[float] = None) -> torch.Tensor:
+    """Grouped-query attention with optional sliding window and KV cache
+    (the plain version; the JAX package's reference ``attend``).
+
+    q: (B, Sq, H, hd); k: (B, Sk, Hkv, hd); v: (B, Sk, Hkv, vd).
+    ``q_offset`` is the absolute position of q[0]; ``kv_valid_len (B,)``
+    masks ragged cache entries. Scores are f32; a fully masked row gives
+    zeros; probabilities are cast to ``v.dtype`` before the PV product,
+    so the output is (B, Sq, H, vd) in ``v.dtype``.
+    """
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    dev = q.device
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qg = (q * scale).reshape(b, sq, hkv, rep, hd)
+    scores = _einsum("bqkrd,bskd->bkrqs", qg, k).float()  # (B,Hkv,rep,Sq,Sk)
+
+    qpos = torch.arange(sq, device=dev) + q_offset
+    kpos = torch.arange(sk, device=dev)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > (qpos[:, None] - window)
+    if kv_valid_len is not None:
+        valid = kpos[None, None, :] < kv_valid_len.reshape(-1, 1, 1)
+        mask = mask[None] & valid                            # (B,Sq,Sk)
+        scores = torch.where(mask[:, None, None], scores, NEG_INF)
+    else:
+        scores = torch.where(mask[None, None, None], scores, NEG_INF)
+
+    probs = torch.softmax(scores, dim=-1)
+    if window is not None or kv_valid_len is not None:
+        # a fully masked row must emit zeros: softmax over all-NEG_INF
+        # logits is uniform and would average dead cache slots
+        alive = torch.any(mask, dim=-1)                      # (Sq,)|(B,Sq)
+        if alive.ndim == 1:
+            alive = alive[None]
+        probs = torch.where(alive[:, None, None, :, None], probs, 0.0)
+    probs = probs.to(v.dtype)
+    out = torch.einsum("bkrqs,bskd->bqkrd", probs, v)
+    return out.reshape(b, sq, h, v.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# GQA attention layer
+# ---------------------------------------------------------------------------
+
+
+def _randn(gen: torch.Generator, shape, dtype, std: float) -> torch.Tensor:
+    """Normal(0, std²) draws on the generator's device, scaled in place."""
+    return torch.randn(shape, generator=gen, dtype=dtype,
+                       device=gen.device).mul_(std)
+
+
+def init_gqa(gen: torch.Generator, cfg, dtype, lead=()) -> dict:
+    """GQA projections; ``lead`` prepends stack axes (e.g. ``(L,)``)."""
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dev = gen.device
+    sd = 1.0 / math.sqrt(d)
+    p = {
+        "wq": _randn(gen, (*lead, d, h * hd), dtype, sd),
+        "wk": _randn(gen, (*lead, d, hkv * hd), dtype, sd),
+        "wv": _randn(gen, (*lead, d, hkv * hd), dtype, sd),
+        "wo": _randn(gen, (*lead, h * hd, d), dtype, 1.0 / math.sqrt(h * hd)),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((*lead, h * hd), dtype=dtype, device=dev)
+        p["bk"] = torch.zeros((*lead, hkv * hd), dtype=dtype, device=dev)
+        p["bv"] = torch.zeros((*lead, hkv * hd), dtype=dtype, device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((*lead, hd), dtype=dtype, device=dev)
+        p["k_norm"] = torch.ones((*lead, hd), dtype=dtype, device=dev)
+    return p
+
+
+def lora_scaling(lora) -> float:
+    """alpha / r, with alpha defaulting to 2r."""
+    r = lora["a"].shape[-1]
+    return lora.get("alpha", float(2 * r)) / r if isinstance(lora, dict) else 1.0
+
+
+def _proj(x, w, b=None, lora=None):
+    """x @ w (+ LoRA bypass) (+ bias). LoRA factors are 2-D ``(din, r)``
+    or batched per slot ``(B, din, r)``; ``torch.matmul`` broadcasts the
+    batched form. Adapters are cast to the activation dtype at use."""
+    y = _matmul(x, w)
+    if lora is not None:
+        a = lora["a"].to(x.dtype)
+        bb = lora["b"].to(x.dtype)
+        y = y + torch.matmul(torch.matmul(x, a), bb) * lora_scaling(lora)
+    if b is not None:
+        y = y + b
+    return y
+
+
+def gqa_qkv(params: dict, cfg, x: torch.Tensor, cos, sin, lora=None):
+    """Project to rotated q, k, v. lora: optional {'wq': {a,b}, 'wv': {a,b}}."""
+    b, s, _ = x.shape
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    lq = lora.get("wq") if lora else None
+    lv = lora.get("wv") if lora else None
+    q = _proj(x, params["wq"], params.get("bq"), lq).reshape(b, s, h, hd)
+    k = _proj(x, params["wk"], params.get("bk")).reshape(b, s, hkv, hd)
+    v = _proj(x, params["wv"], params.get("bv"), lv).reshape(b, s, hkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def gqa_decode(params: dict, cfg, x: torch.Tensor, cache: dict, pos, cos,
+               sin, *, lora=None):
+    """Single-token decode against a (ring-buffer) KV cache.
+
+    cache: {'k': (B, C, Hkv, hd), 'v': ...}, written in place at each
+    row's own cursor ``pos % C`` — inactive serving lanes write too, as
+    in the JAX package. pos: (B,) int32 absolute positions.
+    """
+    q, k_new, v_new = gqa_qkv(params, cfg, x, cos, sin, lora=lora)
+    k, v = cache["k"], cache["v"]
+    cap = k.shape[1]
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    slots = pos % cap
+    k[rows, slots] = k_new[:, 0].to(k.dtype)
+    v[rows, slots] = v_new[:, 0].to(v.dtype)
+    # ring buffer holds the last `cap` tokens -> all slots valid once full
+    valid = torch.clamp(pos + 1, max=cap).to(torch.int32)
+    fd = dispatch.get_kernel("flash_decode", model_backend(cfg), q.device)
+    out = fd(q, k, v, kv_valid_len=valid)
+    b, s = x.shape[:2]
+    y = _matmul(out.reshape(b, s, -1), params["wo"])
+    return y, cache
+
+
+def init_gqa_cache(cfg, batch: int, capacity: int, dtype, device,
+                   lead=()) -> dict:
+    hkv, hd = cfg.n_kv_heads, cfg.hd
+    shape = (*lead, batch, capacity, hkv, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype,
+             lead=()) -> dict:
+    si, so = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(d_ff)
+    return {
+        "wg": _randn(gen, (*lead, d_model, d_ff), dtype, si),
+        "wu": _randn(gen, (*lead, d_model, d_ff), dtype, si),
+        "wd": _randn(gen, (*lead, d_ff, d_model), dtype, so),
+    }
+
+
+def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+    g = torch.nn.functional.silu(_matmul(x, params["wg"]))
+    return _matmul(g * _matmul(x, params["wu"]), params["wd"])

@@ -1,0 +1,186 @@
+"""The whole model, dense path: GQA attention + SwiGLU MLP blocks
+(``gqa_mlp``) — the serving path of the dense archs (qwen2-7b,
+llama2-7b-proxy, phi4-mini, qwen3, minicpm).
+
+Parameters keep the JAX package's *stacked* layout: every leaf of a
+layer stack carries a leading ``(L, ...)`` layer axis, so DevFT's
+grouping and fusion can later act on that axis unchanged. Where the JAX
+package runs a stack with ``lax.scan``, this module runs a Python loop
+over layers, taking per-layer views; there is no jit, scan, vmap or
+buffer donation. ``decode_step`` writes the KV cache in place.
+
+Other block kinds (MoE, Mamba-2, MLA, hybrid, enc-dec, multimodal
+frontends) raise ``NotImplementedError``; ROADMAP.md lists them.
+
+Public API:
+    init_params(cfg, gen, dtype)                  -> params
+    init_lora(cfg, gen, rank, dtype)              -> lora (mirrors stacks)
+    init_cache(cfg, batch, capacity, dtype, device)
+    decode_step(cfg, params, lora, token, cache)  -> (logits, cache)
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+
+from repro_torch.interop import tree_leaves, tree_map
+from repro_torch.models import layers as Lyr
+
+#: block kinds this package runs
+PORTED_KINDS = ("gqa_mlp",)
+
+
+def stack_kinds(cfg) -> Dict[str, str]:
+    """stack name -> block kind (the JAX package's table)."""
+    if cfg.family == "hybrid":
+        return {"mamba_mlp": "mamba_mlp", "mamba_moe": "mamba_moe",
+                "attn_mlp": "gqa_mlp"}
+    if cfg.is_encdec:
+        return {"enc": "enc", "dec": "dec"}
+    if cfg.moe is not None and cfg.moe.first_dense_layers:
+        return {"dense": "mla_mlp" if cfg.attn_kind == "mla" else "gqa_mlp",
+                "moe": "mla_moe" if cfg.attn_kind == "mla" else "gqa_moe"}
+    if cfg.moe is not None:
+        return {"layers": "gqa_moe"}
+    if cfg.family == "ssm":
+        return {"layers": "mamba_only"}
+    return {"layers": "gqa_mlp"}
+
+
+def _check_ported(cfg) -> None:
+    kinds = sorted(set(stack_kinds(cfg).values()))
+    if kinds != list(PORTED_KINDS) or cfg.frontend or cfg.mrope:
+        raise NotImplementedError(
+            f"{cfg.arch_id} ({cfg.family}: blocks {kinds}, frontend="
+            f"{cfg.frontend}, mrope={cfg.mrope}) is not ported yet; the port "
+            f"runs dense {list(PORTED_KINDS)} blocks (ROADMAP.md, 'Modules "
+            f"to port': MoE, Mamba-2/MLA, hybrid and frontend items)")
+
+
+def stack_sizes(blocks: dict) -> Dict[str, int]:
+    """Actual per-stack depth, read off the params."""
+    return {name: tree_leaves(stack)[0].shape[0]
+            for name, stack in blocks.items()}
+
+
+def _init_block(gen: torch.Generator, cfg, kind: str, dtype,
+                n: int) -> dict:
+    """One stack of ``n`` blocks of ``kind``, every leaf ``(n, ...)``."""
+    d = cfg.d_model
+    dev = gen.device
+    assert kind == "gqa_mlp", kind
+    return {
+        "ln1": torch.ones((n, d), dtype=dtype, device=dev),
+        "mixer": Lyr.init_gqa(gen, cfg, dtype, lead=(n,)),
+        "ln2": torch.ones((n, d), dtype=dtype, device=dev),
+        "ffn": Lyr.init_mlp(gen, d, cfg.d_ff, dtype, lead=(n,)),
+    }
+
+
+def _block_lora_targets(cfg, kind: str):
+    """Which mixer projections get LoRA (paper: W_q / W_v), with their
+    (d_in, d_out)."""
+    assert kind == "gqa_mlp", kind
+    d = cfg.d_model
+    return {"wq": (d, cfg.n_heads * cfg.hd),
+            "wv": (d, cfg.n_kv_heads * cfg.hd)}
+
+
+def init_params(cfg, gen: torch.Generator, dtype=None) -> dict:
+    """Random parameters on ``gen.device`` (``cfg.dtype`` by default)."""
+    _check_ported(cfg)
+    dtype = dtype or getattr(torch, cfg.dtype)
+    dev = gen.device
+    d, vp = cfg.d_model, cfg.padded_vocab
+    params = {
+        "embed": Lyr._randn(gen, (vp, d), dtype, 0.02),
+        "final_norm": torch.ones((d,), dtype=dtype, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = Lyr._randn(gen, (d, vp), dtype,
+                                       1.0 / math.sqrt(d))
+    sizes = dict(cfg.layer_stacks())
+    params["blocks"] = {
+        name: _init_block(gen, cfg, kind, dtype, sizes[name])
+        for name, kind in stack_kinds(cfg).items()}
+    return params
+
+
+def init_lora(cfg, gen: torch.Generator, rank: int = 32,
+              dtype=torch.float32) -> dict:
+    """LoRA tree mirroring ``params['blocks']``: ``a`` random, ``b``
+    zero (the adapter starts as the identity)."""
+    _check_ported(cfg)
+    dev = gen.device
+    sizes = dict(cfg.layer_stacks())
+    out = {}
+    for name, kind in stack_kinds(cfg).items():
+        n = sizes[name]
+        out[name] = {
+            pname: {"a": Lyr._randn(gen, (n, din, rank), dtype,
+                                    1.0 / math.sqrt(din)),
+                    "b": torch.zeros((n, rank, dout), dtype=dtype,
+                                     device=dev)}
+            for pname, (din, dout) in sorted(
+                _block_lora_targets(cfg, kind).items())}
+    return out
+
+
+def block_decode(p, cfg, kind, x, cache, pos, cos, sin, lora=None):
+    """Single-token pre-norm residual block; writes ``cache`` in place.
+    Returns (y, cache)."""
+    h = Lyr.rms_norm(x, p["ln1"], cfg.norm_eps)
+    mix, cache["mixer"] = Lyr.gqa_decode(p["mixer"], cfg, h, cache["mixer"],
+                                         pos, cos, sin, lora=lora)
+    x = x + mix
+    h2 = Lyr.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + Lyr.mlp(p["ffn"], h2), cache
+
+
+def init_cache(cfg, batch: int, capacity: int, dtype=None,
+               device="cuda") -> dict:
+    """Stacked decode cache: per stack ``{'mixer': {'k', 'v'}}`` leaves of
+    shape (L, B, C, Hkv, hd), and per-slot positions ``pos (B,)``."""
+    _check_ported(cfg)
+    dtype = dtype or getattr(torch, cfg.dtype)
+    sizes = dict(cfg.layer_stacks())
+    stacks = {name: {"mixer": Lyr.init_gqa_cache(cfg, batch, capacity, dtype,
+                                                 device, lead=(sizes[name],))}
+              for name in stack_kinds(cfg)}
+    return {"stacks": stacks,
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def logits_from_hidden(cfg, params, h):
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return Lyr._matmul(h, w)
+
+
+def decode_step(cfg, params, lora, token, cache):
+    """One-token decode. token: (B, 1) int. Writes each layer's K/V into
+    ``cache`` in place and returns (logits (B, 1, Vp), {"stacks": the
+    same stacks, "pos": pos + 1}); ``cache["pos"]`` itself is left as it
+    was, so a caller can keep the old cursor of an inactive slot."""
+    _check_ported(cfg)
+    x = params["embed"][token]
+    pos = cache["pos"]
+    cos, sin = Lyr.rope_cos_sin(pos[:, None], cfg.hd, cfg.rope_theta)
+    kinds = stack_kinds(cfg)
+    for name, _n in cfg.layer_stacks():
+        stack_p = params["blocks"][name]
+        stack_lo = lora.get(name) if lora else None
+        stack_c = cache["stacks"][name]
+        for layer in range(tree_leaves(stack_p)[0].shape[0]):
+            def at(a, i=layer):
+                return a[i]
+            lo = None if stack_lo is None else tree_map(at, stack_lo)
+            x, _ = block_decode(tree_map(at, stack_p), cfg, kinds[name], x,
+                                tree_map(at, stack_c), pos, cos, sin, lo)
+    h = Lyr.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = logits_from_hidden(cfg, params, h)
+    # mask vocab padding so greedy decode never emits a pad id
+    vmask = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab
+    logits = torch.where(vmask, logits, Lyr.NEG_INF)
+    return logits, {"stacks": cache["stacks"], "pos": pos + 1}

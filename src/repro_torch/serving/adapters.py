@@ -1,0 +1,137 @@
+"""Batch-stacked LoRA adapter registry: N adapters resident on the
+device, selectable per decode slot by index.
+
+The registry stores adapters as ONE stacked tree — each leaf carries a
+leading ``(N, ...)`` residency axis over the canonical per-adapter tree
+``{stack: {target: {'a': (L, d, r), 'b': (L, r, out)}}}``. The engine
+gathers per-slot rows each step (``leaf[idx]`` with ``idx`` the ``(B,)``
+slot->adapter index vector), so any resident subset of adapters is
+served without weight swapping; shapes depend only on the residency
+capacity ``N``.
+
+Populations larger than residency are handled by LRU admission and
+eviction: ``add`` overwrites the least-recently-used unpinned row;
+adapters in use by active requests are pinned, so an eviction never
+swaps an adapter out from under a running decode.
+
+(The JAX package's ``personalized_adapters`` / ``registry_from_run``
+export a finished training run; they need the training runner and come
+with the training slice.)
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Dict, List
+
+import torch
+
+from repro_torch.interop import tree_map, tree_paths
+
+
+def _signature(tree):
+    """Structure and leaf shapes of a tree (what every adapter of one
+    registry must share)."""
+    return [(path, tuple(leaf.shape)) for path, leaf in tree_paths(tree)]
+
+
+class AdapterRegistry:
+    """Device-resident pool of ``capacity`` batch-stacked LoRA adapters.
+
+    ``template`` is any single-adapter tree (e.g. from
+    ``transformer.init_lora``); it fixes the structure, leaf shapes,
+    dtypes and device of every row. Rows start as zero adapters
+    (``b = 0`` -> identity), so an index pointing at an unoccupied row
+    serves the base model.
+    """
+
+    def __init__(self, template, capacity: int):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self.capacity = capacity
+        self._sig = _signature(template)
+        self._stack = tree_map(
+            lambda l: torch.zeros((capacity,) + tuple(l.shape),
+                                  dtype=l.dtype, device=l.device), template)
+        self._slots: "OrderedDict[str, int]" = OrderedDict()  # id -> row
+        self._free: List[int] = list(range(capacity))
+        self._pinned: Dict[str, int] = {}                     # id -> pin count
+        self.evictions = 0
+
+    @classmethod
+    def for_model(cls, cfg, rank: int, capacity: int,
+                  device="cuda") -> "AdapterRegistry":
+        """Empty registry shaped for ``cfg``'s LoRA targets at ``rank``."""
+        from repro_torch.models import transformer as T
+        gen = torch.Generator(device=device).manual_seed(0)
+        template = T.init_lora(cfg, gen, rank=rank)
+        return cls(template, capacity)
+
+    # ---- introspection ----------------------------------------------
+    def __len__(self) -> int:
+        return len(self._slots)
+
+    def __contains__(self, adapter_id: str) -> bool:
+        return adapter_id in self._slots
+
+    def ids(self) -> List[str]:
+        """Registered ids, least-recently-used first."""
+        return list(self._slots)
+
+    @property
+    def stacked(self):
+        """The ``(N, ...)``-stacked tree the engine gathers from."""
+        return self._stack
+
+    # ---- admission / lookup -----------------------------------------
+    def _validate(self, lora) -> None:
+        if _signature(lora) != self._sig:
+            raise ValueError(
+                "adapter tree does not match the registry template "
+                "(structure or leaf shapes differ)")
+
+    def add(self, adapter_id: str, lora) -> int:
+        """Register (or overwrite) ``adapter_id``; returns its row.
+        Evicts the least-recently-used unpinned adapter when full."""
+        self._validate(lora)
+        if adapter_id in self._slots:
+            row = self._slots[adapter_id]
+        elif self._free:
+            row = self._free.pop(0)
+        else:
+            victim = next((v for v in self._slots if v not in self._pinned),
+                          None)
+            if victim is None:
+                raise RuntimeError(
+                    f"registry full ({self.capacity}) and every resident "
+                    f"adapter is pinned by an active request")
+            row = self._slots.pop(victim)
+            self.evictions += 1
+        tree_map(lambda s, l: s[row].copy_(l), self._stack, lora)
+        self._slots[adapter_id] = row
+        self._slots.move_to_end(adapter_id)
+        return row
+
+    def index(self, adapter_id: str) -> int:
+        """Row of ``adapter_id`` (marks it most-recently-used)."""
+        if adapter_id not in self._slots:
+            raise KeyError(f"adapter {adapter_id!r} is not resident; "
+                           f"registered: {self.ids()}")
+        self._slots.move_to_end(adapter_id)
+        return self._slots[adapter_id]
+
+    def get(self, adapter_id: str):
+        """Copy of one adapter tree (tests / checkpoint export)."""
+        row = self.index(adapter_id)
+        return tree_map(lambda s: s[row].clone(), self._stack)
+
+    # ---- pinning (active-request protection) ------------------------
+    def pin(self, adapter_id: str) -> None:
+        self.index(adapter_id)                    # touch + existence check
+        self._pinned[adapter_id] = self._pinned.get(adapter_id, 0) + 1
+
+    def unpin(self, adapter_id: str) -> None:
+        n = self._pinned.get(adapter_id, 0) - 1
+        if n <= 0:
+            self._pinned.pop(adapter_id, None)
+        else:
+            self._pinned[adapter_id] = n
