@@ -5,22 +5,34 @@
 
 Builds every Hopper kernel from the sources in this checkout, holds
 each against its plain PyTorch version on the card and times both, then
-drives the serving path through the port's own entry points
-(``AdapterRegistry``, ``ServingEngine``) at the full width of qwen2-7b
-with random weights, and checks the card's greedy tokens against the
-CPU's at a reduced size. Phases, in order:
+drives the serving path (qwen2-7b) and the training path (llama2-7b-
+proxy, one FedAvg round) through the port's own entry points at full
+width with random weights, and checks card-vs-CPU parity at reduced
+sizes. Phases, in order:
 
-1. device: card, power limit, versions, kernel build time;
-2. kernels: ``flash_decode`` vs its plain version (max abs error, error
-   scaled to each row's output size, exact zeros for empty slots) and
-   times of kernel, plain version and ``scaled_dot_product_attention``
-   (the yardstick; the port never calls it), beside the memory bound;
+1. device: card, power limit, versions, kernel build time, ptxas lines;
+2. kernels: ``flash_decode``, ``lora_matmul`` and ``flash_attention``
+   vs their plain versions (max abs error and error scaled to each
+   row's output size) and times of kernel, plain version and a PyTorch
+   yardstick the port never calls, beside the bound;
 3. serving: qwen2-7b unreduced (28 layers, d 3584, 28/4 heads, vocab
    152064), bf16, 4 resident rank-8 adapters, 8 slots, 16 requests;
-   ``flash_decode`` must have launched once per layer per engine step;
+   ``flash_decode`` must have launched once per layer per engine step,
+   and the decode path must launch neither training kernel;
 4. trace: device busy share over a few profiled engine steps;
 5. parity: reduced qwen2-7b in f32 gives the same greedy tokens on the
-   card (kernel) and on the CPU (plain version).
+   card (kernel) and on the CPU (plain version);
+6. train: llama2-7b-proxy unreduced (32 layers, d 4096, 32/32 heads,
+   ff 11008, vocab 32000), bf16, rank-32 f32 LoRA; after one untimed
+   local step, three federated rounds of 2 clients x 2 local AdamW
+   steps of 4 x 1024 tokens through ``make_federated_round_step``
+   (fedavg), timed by their median; in each round ``lora_matmul`` must
+   have launched 2 x 32 and ``flash_attention`` 32 times per forward,
+   and neither in a backward; device busy share over one profiled step;
+7. train parity: full-width loss through the kernels vs the plain path
+   on the card; reduced llama2-7b-proxy and qwen2-7b in f32, loss and
+   every LoRA gradient on the card (kernels) vs the CPU (plain), and
+   3 local steps of ``make_local_train``.
 
 Every phase raises on failure, so the script exits non-zero; it also
 exits non-zero, printing no result, without a CUDA card or without the
@@ -41,7 +53,9 @@ import torch
 #: H100 SXM published peaks (NVIDIA data sheet) used for the bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12          # CUDA-core f32: the kernel's dot products
+BF16_FLOPS = 989e12        # dense bf16 tensor cores
 CUDA_ITERS = 30            # timed launches per measurement (median)
+TRAIN_ROUNDS = 3           # timed federated rounds after a warm-up (median)
 #: kernel-vs-plain limits: (max abs error, max row-scaled error). The
 #: row-scaled error is max|out - want| / max|want| over each (b, h) row
 #: with valid > 0. In bf16 the kernel and its plain version round the
@@ -96,9 +110,12 @@ def device_phase(build):
     seconds = build.build_all()
     print(f"[device] kernels built in {time.perf_counter() - t0:.2f} s "
           f"(per source: {seconds})")
-    for line in build.build_log("flash_decode").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[device] ptxas: {line.strip()}")
+    for source in build.SOURCES:
+        for line in build.build_log(source).splitlines():
+            if "Compiling entry function" in line:
+                print(f"[device] ptxas {source}: {line.split(chr(39))[1]}")
+            elif "registers" in line or "spill" in line:
+                print(f"[device] ptxas {source}:   {line.strip()}")
     return name, smi
 
 
@@ -191,10 +208,199 @@ def kernel_phase(flash_decode_bhrd, flash_decode_ref, seed: int = 0):
     return rows
 
 
+def _row_scaled(got, want):
+    """(max abs error, max over rows of max|got - want| / max|want|)."""
+    diff = (got.float() - want.float()).abs()
+    size = want.float().abs().amax(-1)
+    return float(diff.max()), float((diff.amax(-1) / size).max())
+
+
+def _bound(bytes_moved, flops, peak_flops):
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / peak_flops
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+#: lora_matmul limits on the row-scaled error. f32: 1e-5, summation
+#: order only (K up to 4096 products in f32). bf16: 2**-6, since the
+#: kernel rounds x@A to bf16 before the rank product, as the TPU kernel
+#: does (lora_matmul.py:89), and the plain version keeps it f32; that and
+#: the output's own rounding stay within two bf16 ulps of the row's size.
+LORA_ROW_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+
+
+def lora_phase(lora_matmul_fused, lora_matmul_ref, seed: int = 0):
+    """lora_matmul vs its plain version; the path shape is one W_q/W_v
+    projection of the training step (4 x 1024 tokens, d 4096, r 32)."""
+    dev = "cuda"
+    rng = np.random.default_rng(np.random.SeedSequence((seed, 4)))
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    cases = [  # name, x shape, N, r, dtype
+        ("path M4096 K4096 N4096 r32 bf16", (4, 1024, 4096), 4096, 32,
+         torch.bfloat16),
+        ("path M4096 K4096 N4096 r32 f32", (4, 1024, 4096), 4096, 32,
+         torch.float32),
+        ("ragged M1000 K1000 N1000 r2 bf16", (1000, 1000), 1000, 2,
+         torch.bfloat16),
+        ("ragged M333 K1001 N777 r8 bf16", (333, 1001), 777, 8,
+         torch.bfloat16),
+        ("ragged M1000 K1000 N1000 r32 bf16", (1000, 1000), 1000, 32,
+         torch.bfloat16),
+        ("ragged M333 K1001 N777 r8 f32", (333, 1001), 777, 8,
+         torch.float32),
+        ("lead B2 S77 K512 N640 r16 bf16", (2, 77, 512), 640, 16,
+         torch.bfloat16),
+    ]
+    rows = {}
+    for name, xs, n, r, dt in cases:
+        k = xs[-1]
+
+        def rand(*shape, std=1.0):
+            a = rng.standard_normal(shape, dtype=np.float32) * std
+            return torch.from_numpy(a).to(dev).to(dt)
+        x = rand(*xs)
+        w = rand(k, n, std=k ** -0.5)
+        a = rand(k, r, std=k ** -0.5)
+        b = rand(r, n, std=r ** -0.5)
+        out = lora_matmul_fused(x, w, a, b, scaling=2.0)
+        want = lora_matmul_ref(x, w, a, b, scaling=2.0)
+        torch.cuda.synchronize()
+        check(out.dtype == want.dtype and out.shape == want.shape,
+              f"lora {name}: {out.dtype}{tuple(out.shape)} vs plain "
+              f"{want.dtype}{tuple(want.shape)}")
+        err, row_err = _row_scaled(out, want)
+        check(row_err <= LORA_ROW_TOL[dt],
+              f"lora {name}: row-scaled error {row_err} > {LORA_ROW_TOL[dt]}")
+        m = x.numel() // k
+        esz = x.element_size()
+        bytes_moved = esz * (m * k + k * n + k * r + r * n + m * n)
+        flops = 2 * m * n * k + 2 * m * r * (k + n)
+        bound_ms, bound_by = _bound(
+            bytes_moved, flops,
+            BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
+        ms = time_cuda(lambda: lora_matmul_fused(x, w, a, b, scaling=2.0),
+                       flush)
+        plain_ms = time_cuda(
+            lambda: lora_matmul_ref(x, w, a, b, scaling=2.0), flush)
+        # yardstick only: the frozen product x @ w alone (no single
+        # PyTorch call computes the fused function)
+        library_ms = time_cuda(lambda: torch.matmul(x, w), flush)
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=library_ms)
+        print(f"[kernel] lora_matmul {name}: err={err:.3g} row-scaled "
+              f"{row_err:.3g} (tol {LORA_ROW_TOL[dt]:.3g}) | kernel "
+              f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, x@w alone "
+              f"(matmul) {library_ms * 1e3:.1f} us, bound "
+              f"{bound_ms * 1e3:.2f} us ({bound_by}; {flops / 1e9:.2f} "
+              f"GFLOP, {bytes_moved / 1e6:.2f} MB; {100 * bound_ms / ms:.1f}"
+              f"% of bound, {flops / ms / 1e9:.1f} TFLOP/s)")
+    del flush
+    return rows
+
+
+#: flash_attention limits on the row-scaled error. f32: 1e-4, as the
+#: decode kernel (summation order of the online softmax only). bf16:
+#: 2**-5: the kernel rounds the probabilities to bf16 for the PV product
+#: on the tensor cores and the plain version keeps them f32; with the
+#: output's own rounding that is a few bf16 ulps (2**-8 each) of the
+#: row's largest output at most.
+FLASH_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -5}
+
+
+def _live_pairs(s, causal, window):
+    """(query, key) pairs the mask keeps, per head."""
+    i = np.arange(s)[:, None]
+    j = np.arange(s)[None, :]
+    keep = np.ones((s, s), bool)
+    if causal:
+        keep &= j <= i
+    if window is not None:
+        keep &= j > i - window
+    return int(keep.sum())
+
+
+def attention_phase(flash_attention_bshd, attention_bshd_ref,
+                    seed: int = 0):
+    """flash_attention vs its plain version; the path shape is one
+    layer of the training step (llama2-7b-proxy, 4 x 1024 tokens)."""
+    dev = "cuda"
+    rng = np.random.default_rng(np.random.SeedSequence((seed, 5)))
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    cases = [  # name, B, S, H, Hkv, D, causal, window, dtype
+        ("path B4 S1024 H32 D128 causal bf16", 4, 1024, 32, 32, 128, True,
+         None, torch.bfloat16),
+        ("path B4 S1024 H32 D128 causal f32", 4, 1024, 32, 32, 128, True,
+         None, torch.float32),
+        ("gqa 28/4 S1024 causal bf16", 2, 1024, 28, 4, 128, True, None,
+         torch.bfloat16),
+        ("window 256 S1024 causal bf16", 2, 1024, 8, 8, 128, True, 256,
+         torch.bfloat16),
+        ("ragged S1000 causal bf16", 2, 1000, 8, 2, 128, True, None,
+         torch.bfloat16),
+        ("full S512 bf16", 2, 512, 8, 8, 128, False, None, torch.bfloat16),
+        ("ragged S300 gqa causal f32", 2, 300, 8, 2, 64, True, None,
+         torch.float32),
+    ]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for name, b, s, h, hkv, d, causal, window, dt in cases:
+        def rand(*shape):
+            a = rng.standard_normal(shape, dtype=np.float32)
+            return torch.from_numpy(a).to(dev).to(dt)
+        q, k, v = rand(b, s, h, d), rand(b, s, hkv, d), rand(b, s, hkv, d)
+        kw = dict(causal=causal, window=window)
+        out = flash_attention_bshd(q, k, v, **kw)
+        want = attention_bshd_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check(out.dtype == want.dtype and out.shape == want.shape,
+              f"flash {name}: {out.dtype}{tuple(out.shape)} vs plain "
+              f"{want.dtype}{tuple(want.shape)}")
+        err, row_err = _row_scaled(out, want)
+        check(row_err <= FLASH_ROW_TOL[dt],
+              f"flash {name}: row-scaled error {row_err} > "
+              f"{FLASH_ROW_TOL[dt]}")
+        esz = q.element_size()
+        bytes_moved = esz * (2 * q.numel() + k.numel() + v.numel())
+        flops = 4 * d * b * h * _live_pairs(s, causal, window)
+        bound_ms, bound_by = _bound(
+            bytes_moved, flops,
+            BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
+        ms = time_cuda(lambda: flash_attention_bshd(q, k, v, **kw), flush)
+        plain_ms = time_cuda(lambda: attention_bshd_ref(q, k, v, **kw),
+                             flush)
+        # yardstick only: one PyTorch call for the same function
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if window is None:
+            lib = lambda: sdpa(qt, kt, vt, is_causal=causal,  # noqa: E731
+                               enable_gqa=True)
+        else:
+            i = torch.arange(s, device=dev)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                                 - window)
+            lib = lambda: sdpa(qt, kt, vt, attn_mask=mask,  # noqa: E731
+                               enable_gqa=True)
+        library_ms = time_cuda(lib, flush)
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=library_ms)
+        print(f"[kernel] flash_attention {name}: err={err:.3g} row-scaled "
+              f"{row_err:.3g} (tol {FLASH_ROW_TOL[dt]:.3g}) | kernel "
+              f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, sdpa "
+              f"{library_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us "
+              f"({bound_by}; {flops / 1e9:.2f} GFLOP, "
+              f"{bytes_moved / 1e6:.2f} MB; {100 * bound_ms / ms:.1f}% of "
+              f"bound)")
+    del flush
+    return rows
+
+
 def serving_phase(seed: int = 0):
     """qwen2-7b at full width through the multi-tenant engine."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_bshd
     from repro_torch.kernels.flash_decode import flash_decode_bhrd
+    from repro_torch.kernels.lora_matmul import lora_matmul_fused
     from repro_torch.models import transformer as T
     from repro_torch.serving import AdapterRegistry, ServingEngine
 
@@ -228,7 +434,8 @@ def serving_phase(seed: int = 0):
     prompts = [rng.integers(0, cfg.vocab, size=n, dtype=np.int32)
                for n in lens]
 
-    flash_decode_bhrd.launches = 0
+    for fn in (flash_decode_bhrd, lora_matmul_fused, flash_attention_bshd):
+        fn.launches = 0
     t_warm = time.perf_counter()
     engine.warmup()
     warm_s = time.perf_counter() - t_warm
@@ -242,6 +449,10 @@ def serving_phase(seed: int = 0):
         steps += 1
     wall = time.perf_counter() - t0
     launches = flash_decode_bhrd.launches
+    check(lora_matmul_fused.launches == flash_attention_bshd.launches == 0,
+          f"the decode path launched training kernels: lora_matmul "
+          f"{lora_matmul_fused.launches}, flash_attention "
+          f"{flash_attention_bshd.launches}")
 
     check(all(r.done for r in reqs), "not every request finished")
     for r in reqs:
@@ -282,41 +493,51 @@ def serving_phase(seed: int = 0):
 
 def trace_phase(engine, prompts):
     """Device busy share over a few profiled steps of the same engine."""
-    from torch.profiler import ProfilerActivity, profile
-
     for i, p in enumerate(prompts[:engine.scheduler.n_slots]):
         engine.submit(p[:16], max_new_tokens=8,
                       adapter=f"adapter/{i % len(engine.adapters)}")
     for _ in range(4):                                   # into steady state
         engine.step()
-    torch.cuda.synchronize()
     n = 5
+
+    def steps():
+        for _ in range(n):
+            engine.step()
+    _profile("trace", f"{n} profiled engine steps", steps, n)
+    while engine.has_work():
+        engine.step()
+
+
+def _profile(tag, what, fn, n=1):
+    """Wall time and device busy share of ``fn()`` under torch.profiler,
+    with the kernels that took most device time; ``n`` divides the
+    per-call numbers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n):
-            engine.step()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    while engine.has_work():
-        engine.step()
-    from torch.autograd import DeviceType
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     if not kernels:
-        print("[trace] the profiler saw no device activity: busy share "
-              "not measured")
+        print(f"[{tag}] the profiler saw no device activity: busy share "
+              f"not measured")
         return
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     by_name = {}
     for e in kernels:
         t, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
-    print(f"[trace] {n} profiled steps: wall {wall * 1e3:.1f} ms, device "
-          f"busy {busy_us / 1e3:.1f} ms ({100 * busy_us / 1e6 / wall:.1f}%"
-          f", idle {100 - 100 * busy_us / 1e6 / wall:.1f}%), "
-          f"{len(kernels) // n} kernels/step")
+    print(f"[{tag}] {what}: wall {wall * 1e3:.1f} ms, device busy "
+          f"{busy_us / 1e3:.1f} ms ({100 * busy_us / 1e6 / wall:.1f}%, idle "
+          f"{100 - 100 * busy_us / 1e6 / wall:.1f}%), {len(kernels) // n} "
+          f"kernels per call")
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
-        print(f"[trace]   {t / 1e3 / n:.3f} ms/step, {c // n} calls/step: "
+        print(f"[{tag}]   {t / 1e3 / n:.3f} ms, {c // n} calls per call: "
               f"{name[:90]}")
 
 
@@ -363,6 +584,181 @@ def parity_phase(seed: int = 0):
           f"adapters: cuda == cpu {out['cuda'][0].tolist()} ...")
 
 
+def _nonzero_lora(T, cfg, gen, rank, std):
+    """``init_lora`` with random ``b`` (zero ``b`` would leave the
+    adapters' product zero and the gradient of ``a`` zero)."""
+    lora = T.init_lora(cfg, gen, rank=rank)
+    for stack in lora.values():
+        for ab in stack.values():
+            ab["b"].normal_(0.0, std, generator=gen)
+    return lora
+
+
+def train_phase(seed: int = 0):
+    """llama2-7b-proxy at full width: federated rounds (2 clients x K=2
+    local AdamW steps, fedavg) through make_federated_round_step, timed
+    warm."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import (client_round_batches,
+                                            make_federated_data)
+    from repro_torch.federated.client import make_local_train
+    from repro_torch.kernels.flash_attention import flash_attention_bshd
+    from repro_torch.kernels.flash_decode import flash_decode_bhrd
+    from repro_torch.kernels.lora_matmul import lora_matmul_fused
+    from repro_torch.launch.steps import make_federated_round_step
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("llama2-7b-proxy")
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+           cfg.d_ff, cfg.vocab, cfg.dtype)
+          == (32, 4096, 32, 32, 128, 11008, 32000, "bfloat16"),
+          f"llama2-7b-proxy config changed: {cfg}")
+    n_clients, k_local, batch, seq, rank, lr = 2, 2, 4, 1024, 32, 1e-4
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_params(cfg, g)
+    lora = _nonzero_lora(T, cfg, g, rank, 0.02)
+    data = make_federated_data(cfg.vocab, n_clients=20, seed=seed)
+    batches = client_round_batches(data, list(range(n_clients)), k_local,
+                                   batch, seq, (seed, 0))
+    torch.cuda.synchronize()
+    n_param = sum(p.numel() for p in _leaves(params))
+    print(f"[train] llama2-7b-proxy full width: {n_param / 1e9:.3f} B params "
+          f"({sum(p.numel() * p.element_size() for p in _leaves(params)) / 1e9:.2f}"
+          f" GB {cfg.dtype}), rank-{rank} f32 LoRA "
+          f"({sum(p.numel() for p in _leaves(lora)) / 1e6:.2f} M params), "
+          f"batches {tuple(batches['tokens'].shape)}, set-up "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    round_step = make_federated_round_step(cfg, k_local=k_local, remat=False)
+    kernels = (flash_decode_bhrd, lora_matmul_fused, flash_attention_bshd)
+    local = make_local_train(cfg)
+    one = {k: v[0, :1] for k, v in batches.items()}
+    # one untimed local step first: cuBLAS's first use at these shapes
+    # and the allocator's growth stay out of the timed rounds
+    local(params, lora, one, lr)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    forwards = n_clients * k_local
+    want = {"flash_decode_bhrd": 0,
+            "lora_matmul_fused": 2 * cfg.n_layers * forwards,
+            "flash_attention_bshd": cfg.n_layers * forwards}
+    walls = []
+    for _ in range(TRAIN_ROUNDS):
+        for fn in kernels:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        new_lora, loss = round_step(params, lora, batches, lr)
+        loss = float(loss)                               # waits
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        check(launches == want, f"launches {launches}, want {want} (the "
+              f"backward launches no kernel)")
+    peak = torch.cuda.max_memory_allocated()
+    wall = float(np.median(walls))
+
+    check(np.isfinite(loss), f"round loss {loss}")
+    old, new = _leaves(lora), _leaves(new_lora)
+    check(all(bool(torch.isfinite(b).all()) for b in new),
+          "non-finite aggregated LoRA")
+    check(all(not torch.equal(a, b) for a, b in zip(old, new)),
+          "the aggregated LoRA equals the incoming one")
+    tokens = forwards * batch * seq
+    print(f"[train] fedavg round, {n_clients} clients x {k_local} local "
+          f"steps x {batch} x {seq} tokens, lr {lr}, {TRAIN_ROUNDS} warm "
+          f"rounds: walls {', '.join(f'{w:.3f}' for w in walls)} s; median "
+          f"{wall / forwards * 1e3:.1f} ms per local step, "
+          f"{tokens / wall:.0f} tokens/s, mean last loss {loss:.4f}, max "
+          f"memory allocated {peak / 2**30:.2f} GiB")
+    print(f"[train] launches per round {launches} = {forwards} forwards x "
+          f"(2 x {cfg.n_layers}, {cfg.n_layers})")
+
+    _profile("train", "one profiled local step (forward, backward, AdamW)",
+             lambda: local(params, lora, one, lr))
+    return cfg, params, lora, batches, launches
+
+
+def train_parity_phase(cfg, params, lora, batches, seed: int = 0):
+    """The kernels' numerics in the model: full width through the kernels
+    vs the plain path on the card; reduced models, card vs CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.federated.client import make_local_train
+    from repro_torch.interop import tree_map
+    from repro_torch.models import transformer as T
+
+    # full width, one batch: the two paths round bf16 at other places
+    # (the kernels are f32 inside), as the JAX backends do: 1e-2 relative
+    batch = {k: v[0, 0] for k, v in batches.items()}
+    with torch.no_grad():
+        kern, _ = T.loss_fn(cfg, params, lora, batch)
+        plain, _ = T.loss_fn(dataclasses.replace(
+            cfg, kernel_backend="reference"), params, lora, batch)
+    rel = abs(float(kern) - float(plain)) / abs(float(plain))
+    check(rel <= 1e-2, f"full-width loss: kernels {float(kern)} vs plain "
+          f"{float(plain)} (rel {rel})")
+    print(f"[train-parity] llama2-7b-proxy full width, 4 x 1024 tokens: "
+          f"loss through the kernels {float(kern):.5f}, plain path "
+          f"{float(plain):.5f}, rel diff {rel:.3g} (tol 1e-2)")
+
+    rng = np.random.default_rng(np.random.SeedSequence((seed, 6)))
+
+    def to(tree, dev):
+        return tree_map(lambda t: t.to(dev), tree)
+
+    for arch in ("llama2-7b-proxy", "qwen2-7b"):
+        rcfg = dataclasses.replace(reduce_config(get_config(arch)),
+                                   dtype="float32")
+        gen = torch.Generator(device="cpu").manual_seed(seed)
+        rp = T.init_params(rcfg, gen)
+        rl = _nonzero_lora(T, rcfg, gen, 8, 0.05)
+        tok = rng.integers(0, rcfg.vocab, size=(2, 100), dtype=np.int32)
+        lab = rng.integers(0, rcfg.vocab, size=(2, 100), dtype=np.int32)
+        b1 = {"tokens": tok, "labels": lab}
+        # f32: summation order only, rtol = atol = 1e-4
+        got = T.loss_and_lora_grads(rcfg, to(rp, "cuda"), to(rl, "cuda"), b1)
+        want = T.loss_and_lora_grads(rcfg, rp, rl, b1)
+        torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-4,
+                                   atol=1e-4)
+        worst = 0.0
+        for a, b in zip(_leaves(got[2]), _leaves(want[2])):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+            worst = max(worst, float((a.cpu() - b).abs().max()))
+        print(f"[train-parity] reduced {arch} f32: loss cuda "
+              f"{float(got[0]):.6f} cpu {float(want[0]):.6f}, max |grad "
+              f"diff| {worst:.3g} over {len(_leaves(want[2]))} LoRA leaves")
+        if arch != "llama2-7b-proxy":
+            continue
+        # three local AdamW steps; Adam moves each element by ~lr
+        # whatever its gradient, so leaves at 2 * lr * K, and the update
+        k_steps, lr = 3, 1e-3
+        bt = {"tokens": rng.integers(0, rcfg.vocab, (k_steps, 2, 100),
+                                     dtype=np.int32),
+              "labels": rng.integers(0, rcfg.vocab, (k_steps, 2, 100),
+                                     dtype=np.int32)}
+        local = make_local_train(rcfg)
+        lc, mc = local(to(rp, "cuda"), to(rl, "cuda"), bt, lr)
+        lh, mh = local(rp, rl, bt, lr)
+        for key in ("loss_first", "loss_last"):
+            torch.testing.assert_close(mc[key].cpu(), mh[key], rtol=1e-3,
+                                       atol=1e-3)
+        for a, b, old in zip(_leaves(lc), _leaves(lh), _leaves(rl)):
+            torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                       atol=2 * lr * k_steps)
+            # the update itself agrees to f32 rounding but for elements
+            # whose gradient is within noise of zero: 1e-3 * lr on 99%
+            off = ((a.cpu() - old) - (b - old)).abs() > 1e-3 * lr
+            check(float(off.float().mean()) <= 0.01,
+                  f"local train updates differ on {float(off.float().mean())}"
+                  f" of a {tuple(old.shape)} leaf")
+        print(f"[train-parity] reduced {arch} f32, make_local_train K=3: "
+              f"losses cuda {float(mc['loss_first']):.6f} -> "
+              f"{float(mc['loss_last']):.6f}, cpu "
+              f"{float(mh['loss_first']):.6f} -> {float(mh['loss_last']):.6f}")
+
+
 def _leaves(tree):
     from repro_torch.interop import tree_leaves
     return tree_leaves(tree)
@@ -378,27 +774,46 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, src)
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.flash_attention import flash_attention_bshd
     from repro_torch.kernels.flash_decode import flash_decode_bhrd
-    from repro_torch.kernels.ref import flash_decode_ref
+    from repro_torch.kernels.lora_matmul import lora_matmul_fused
     from repro_torch.launch.serve import setup_numerics
 
     t_start = time.perf_counter()
     setup_numerics()
     name, smi = device_phase(build)
-    rows = kernel_phase(flash_decode_bhrd, flash_decode_ref)
+    rows = kernel_phase(flash_decode_bhrd, ref.flash_decode_ref)
+    lora_rows = lora_phase(lora_matmul_fused, ref.lora_matmul_ref)
+    flash_rows = attention_phase(flash_attention_bshd,
+                                 ref.attention_bshd_ref)
     engine, prompts, steps, launches = serving_phase()
     trace_phase(engine, prompts)
     del engine
     torch.cuda.empty_cache()
     parity_phase()
+    train = train_phase()
+    train_launches = train[-1]
+    train_parity_phase(*train[:-1])
+    del train
+    torch.cuda.empty_cache()
 
-    row = rows["path C4096 bf16"]
-    kernels = {"kernels": [dict(
-        name="flash_decode", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_decode.cu",
-        replaces="src/repro/kernels/flash_decode.py:135",
-        launches=launches, **row)]}
+    kernels = {"kernels": [
+        dict(name="flash_decode", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_decode.cu",
+             replaces="src/repro/kernels/flash_decode.py:135",
+             launches=launches, **rows["path C4096 bf16"]),
+        dict(name="lora_matmul", route="cuda",
+             source="src/repro_torch/kernels/csrc/lora_matmul.cu",
+             replaces="src/repro/kernels/lora_matmul.py:94",
+             launches=train_launches["lora_matmul_fused"],
+             **lora_rows["path M4096 K4096 N4096 r32 bf16"]),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:126",
+             launches=train_launches["flash_attention_bshd"],
+             **flash_rows["path B4 S1024 H32 D128 causal bf16"]),
+    ]}
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
     print(smi)

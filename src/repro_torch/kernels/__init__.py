@@ -9,5 +9,10 @@ from repro_torch.kernels.dispatch import (  # noqa: F401
     get_kernel,
     register_kernel,
     resolve,
+    use_kernel,
 )
-from repro_torch.kernels.ops import flash_decode  # noqa: F401
+from repro_torch.kernels.ops import (  # noqa: F401
+    flash_attention,
+    flash_decode,
+    lora_matmul,
+)

@@ -65,6 +65,13 @@ def resolve(backend, device) -> str:
     return KernelBackend.PALLAS.value
 
 
+def use_kernel(backend, device) -> bool:
+    """Whether a model op on ``device`` takes its kernel branch (the
+    Hopper kernel) under ``backend``: the predicate the layers' branches
+    test, as the JAX package's ``use_pallas``. Raises as ``resolve``."""
+    return resolve(backend, device) == KernelBackend.PALLAS.value
+
+
 _KERNELS: Dict[str, Dict[str, Callable]] = {}
 _builtins_loaded = False
 
@@ -139,7 +146,19 @@ def _ensure_builtin_kernels() -> None:
         return
     _builtins_loaded = True
     from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bshd
     from repro_torch.kernels.flash_decode import flash_decode_bhrd
+    from repro_torch.kernels.lora_matmul import lora_matmul_fused
+
+    # whole-sequence causal / windowed attention (training and prefill)
+    register_kernel("flash_attention", "pallas", flash_attention_bshd)
+    register_kernel("flash_attention", "reference", ref.attention_bshd_ref)
+    declare_kernel_contract("flash_attention", family="attention",
+                            out="like:q")
+    # frozen-weight matmul with the LoRA bypass fused in (W_q, W_v)
+    register_kernel("lora_matmul", "pallas", lora_matmul_fused)
+    register_kernel("lora_matmul", "reference", ref.lora_matmul_ref)
+    declare_kernel_contract("lora_matmul", family="lora", out="x@w")
 
     # single-token ragged-cache decode attention (the serving step's
     # kernel); out="q^v": absorbed-MLA decode attends latents whose v

@@ -4,6 +4,12 @@ Each op resolves through ``repro_torch.kernels.dispatch`` by the device
 of its tensors: a CPU tensor runs the plain PyTorch version
 (``repro_torch.kernels.ref``), a CUDA tensor launches the Hopper kernel
 or raises — there is no fallback to the plain version on the card.
+
+``flash_attention`` and ``lora_matmul`` sit on the training path, so
+each is a ``torch.autograd.Function`` (the JAX package's ``custom_vjp``):
+the forward runs the kernel, the backward is the gradient of the plain
+version on the saved inputs. The JAX package has no backward kernel for
+either op, so neither has one here.
 """
 from __future__ import annotations
 
@@ -11,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, ref
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -23,3 +29,78 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     exact zeros. Inference only (no autograd)."""
     return dispatch.get_kernel("flash_decode", "auto", q.device)(
         q, k, v, kv_valid_len=kv_valid_len, scale=scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, backend):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, scale=scale)
+        return dispatch.get_kernel("flash_attention", backend, q.device)(
+            q, k, v, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        """Autograd through ``attention_bshd_ref`` on the saved inputs."""
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n)
+                      for t, n in zip(ctx.saved_tensors, need)]
+            out = ref.attention_bshd_ref(*leaves, **ctx.kw)
+            grads = iter(torch.autograd.grad(
+                out, [t for t, n in zip(leaves, need) if n], grad_out))
+        return (*(next(grads) if n else None for n in need),
+                None, None, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None,
+                    backend: str = "auto") -> torch.Tensor:
+    """Model layout: q (B,S,H,D); k/v (B,S,Hkv,D). Returns (B,S,H,D) in
+    ``q.dtype``."""
+    return _FlashAttention.apply(q, k, v, causal, window, scale, backend)
+
+
+class _LoraMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, a, b, scaling, backend):
+        ctx.save_for_backward(x, w, a, b)
+        ctx.scaling = scaling
+        return dispatch.get_kernel("lora_matmul", backend, x.device)(
+            x, w, a, b, scaling=scaling)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        """The products autograd through ``lora_matmul_ref`` runs, in f32,
+        for the inputs that need a gradient; the forward's x @ W, which no
+        gradient needs, is not recomputed."""
+        x, w, a, b = ctx.saved_tensors
+        need_x, need_w, need_a, need_b = ctx.needs_input_grad[:4]
+        g = grad_out.reshape(-1, w.shape[1]).float()
+        a32, b32 = a.float(), b.float()
+        g_lo = g * ctx.scaling                          # (M, N)
+        dx = dw = da = db = None
+        if need_w or need_a or need_b:
+            x2 = x.reshape(-1, x.shape[-1]).float()
+        if need_x or need_a:
+            g_xa = g_lo @ b32.t()                       # (M, r)
+        if need_x:
+            dx = (g @ w.float().t() + g_xa @ a32.t()).to(x.dtype)
+            dx = dx.reshape(x.shape)
+        if need_w:
+            dw = (x2.t() @ g).to(w.dtype)
+        if need_a:
+            da = (x2.t() @ g_xa).to(a.dtype)
+        if need_b:
+            db = ((x2 @ a32).t() @ g_lo).to(b.dtype)
+        return dx, dw, da, db, None, None
+
+
+def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor, *, scaling: float = 1.0,
+                backend: str = "auto") -> torch.Tensor:
+    """x: (..., K) any leading dims; w (K,N); a (K,r); b (r,N), one
+    dtype. ``scaling`` = alpha/r (``lora_scaling``), a Python float
+    passed to the kernel by value. Returns (..., N) in ``x.dtype``."""
+    return _LoraMatmul.apply(x, w, a, b, float(scaling), backend)

@@ -2,7 +2,7 @@
 
 LoRA init/application lives with the model
 (``repro_torch.models.transformer`` / ``layers._proj``); these are the
-server-side utilities the serving path uses.
+server-side utilities the serving and federated paths use.
 """
 from __future__ import annotations
 
@@ -22,6 +22,14 @@ def lora_leaf_role(path) -> "str | None":
         if key in ("a", "b"):
             return key
     return None
+
+
+def is_lora_a(path) -> bool:
+    return lora_leaf_role(path) == "a"
+
+
+def is_lora_b(path) -> bool:
+    return lora_leaf_role(path) == "b"
 
 
 def merge_lora(params: dict, lora: dict, scaling: "float | None" = None

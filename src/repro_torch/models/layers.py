@@ -1,6 +1,15 @@
 """Shared transformer primitives (dense half): RMSNorm, RoPE, grouped-
 query attention, the LoRA projection and the SwiGLU MLP.
 
+Kernel branches, as in the JAX package: ``attend`` sends calls that fit
+the flash kernel's contract (``_flash_eligible``) to ``flash_attention``,
+and ``_proj`` sends frozen-weight products that carry a 2-D LoRA adapter
+to the fused ``lora_matmul``, whenever ``dispatch.use_kernel(backend,
+device)`` holds — on the card under ``auto``/``pallas``. Otherwise (the
+CPU, the ``reference`` backend, per-slot serving adapters, ragged
+caches) they run the plain math below. The decode path never passes a
+backend, so serving never reaches either kernel.
+
 Plain functions on tensors; parameters are nested dicts of tensors.
 Layer functions take *unstacked* (single-layer) params — the stacked
 ``(L, ...)`` layout and the loop over layers live in
@@ -26,7 +35,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, ops
 from repro_torch.kernels.common import NEG_INF
 
 
@@ -90,26 +99,44 @@ def model_backend(cfg) -> str:
     return getattr(cfg, "kernel_backend", None) or "reference"
 
 
+def _flash_eligible(q, k, v, q_offset, kv_valid_len) -> bool:
+    """Whether this ``attend`` call fits the flash kernel's contract: no
+    ragged-cache masking, zero query offset (prefill/train), square q/k
+    lengths, matching qk/v head dims and whole GQA groups."""
+    return (kv_valid_len is None
+            and isinstance(q_offset, int) and q_offset == 0
+            and q.shape[1] == k.shape[1]
+            and v.shape[-1] == q.shape[-1]
+            and q.shape[2] % k.shape[2] == 0)
+
+
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool = True,
            window: Optional[int] = None,
            q_offset: int = 0,
            kv_valid_len: Optional[torch.Tensor] = None,
-           scale: Optional[float] = None) -> torch.Tensor:
+           scale: Optional[float] = None,
+           backend: str = "reference") -> torch.Tensor:
     """Grouped-query attention with optional sliding window and KV cache
-    (the plain version; the JAX package's reference ``attend``).
+    (the JAX package's ``attend``).
 
     q: (B, Sq, H, hd); k: (B, Sk, Hkv, hd); v: (B, Sk, Hkv, vd).
     ``q_offset`` is the absolute position of q[0]; ``kv_valid_len (B,)``
-    masks ragged cache entries. Scores are f32; a fully masked row gives
-    zeros; probabilities are cast to ``v.dtype`` before the PV product,
-    so the output is (B, Sq, H, vd) in ``v.dtype``.
+    masks ragged cache entries. ``backend`` routes eligible calls to the
+    ``flash_attention`` kernel (all f32 inside, output in ``q.dtype``).
+    The plain math: scores are f32; a fully masked row gives zeros;
+    probabilities are cast to ``v.dtype`` before the PV product, so the
+    output is (B, Sq, H, vd) in ``v.dtype``.
     """
     b, sq, h, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     rep = h // hkv
     dev = q.device
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    if dispatch.use_kernel(backend, dev) and _flash_eligible(
+            q, k, v, q_offset, kv_valid_len):
+        return ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   scale=scale, backend=backend)
     qg = (q * scale).reshape(b, sq, hkv, rep, hd)
     scores = _einsum("bqkrd,bskd->bkrqs", qg, k).float()  # (B,Hkv,rep,Sq,Sk)
 
@@ -178,10 +205,19 @@ def lora_scaling(lora) -> float:
     return lora.get("alpha", float(2 * r)) / r if isinstance(lora, dict) else 1.0
 
 
-def _proj(x, w, b=None, lora=None):
+def _proj(x, w, b=None, lora=None, backend: str = "reference"):
     """x @ w (+ LoRA bypass) (+ bias). LoRA factors are 2-D ``(din, r)``
     or batched per slot ``(B, din, r)``; ``torch.matmul`` broadcasts the
-    batched form. Adapters are cast to the activation dtype at use."""
+    batched form. Adapters are cast to the activation dtype at use; the
+    cast is differentiable, so an f32 adapter gets an f32 gradient.
+    ``backend`` routes 2-D adapters to the fused ``lora_matmul`` kernel
+    (single-adapter: per-slot stacks keep the plain path)."""
+    if lora is not None and lora["a"].dim() == 2 \
+            and dispatch.use_kernel(backend, x.device):
+        y = ops.lora_matmul(x, w, lora["a"].to(x.dtype),
+                            lora["b"].to(x.dtype),
+                            scaling=lora_scaling(lora), backend=backend)
+        return y if b is None else y + b
     y = _matmul(x, w)
     if lora is not None:
         a = lora["a"].to(x.dtype)
@@ -192,21 +228,35 @@ def _proj(x, w, b=None, lora=None):
     return y
 
 
-def gqa_qkv(params: dict, cfg, x: torch.Tensor, cos, sin, lora=None):
+def gqa_qkv(params: dict, cfg, x: torch.Tensor, cos, sin, lora=None,
+            backend: str = "reference"):
     """Project to rotated q, k, v. lora: optional {'wq': {a,b}, 'wv': {a,b}}."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     lq = lora.get("wq") if lora else None
     lv = lora.get("wv") if lora else None
-    q = _proj(x, params["wq"], params.get("bq"), lq).reshape(b, s, h, hd)
+    q = _proj(x, params["wq"], params.get("bq"), lq,
+              backend=backend).reshape(b, s, h, hd)
     k = _proj(x, params["wk"], params.get("bk")).reshape(b, s, hkv, hd)
-    v = _proj(x, params["wv"], params.get("bv"), lv).reshape(b, s, hkv, hd)
+    v = _proj(x, params["wv"], params.get("bv"), lv,
+              backend=backend).reshape(b, s, hkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     return q, k, v
+
+
+def gqa_attention(params: dict, cfg, x: torch.Tensor, cos, sin, *,
+                  window=None, lora=None, causal=True) -> torch.Tensor:
+    """Whole-sequence GQA (training, prefill): the config's backend picks
+    the kernel branches of the projections and of ``attend``."""
+    backend = model_backend(cfg)
+    q, k, v = gqa_qkv(params, cfg, x, cos, sin, lora=lora, backend=backend)
+    out = attend(q, k, v, causal=causal, window=window, backend=backend)
+    b, s = q.shape[:2]
+    return _matmul(out.reshape(b, s, -1), params["wo"])
 
 
 def gqa_decode(params: dict, cfg, x: torch.Tensor, cache: dict, pos, cos,

@@ -1,6 +1,6 @@
 """The whole model, dense path: GQA attention + SwiGLU MLP blocks
-(``gqa_mlp``) — the serving path of the dense archs (qwen2-7b,
-llama2-7b-proxy, phi4-mini, qwen3, minicpm).
+(``gqa_mlp``) — the training and serving paths of the dense archs
+(qwen2-7b, llama2-7b-proxy, phi4-mini, qwen3, minicpm).
 
 Parameters keep the JAX package's *stacked* layout: every leaf of a
 layer stack carries a leading ``(L, ...)`` layer axis, so DevFT's
@@ -8,6 +8,9 @@ grouping and fusion can later act on that axis unchanged. Where the JAX
 package runs a stack with ``lax.scan``, this module runs a Python loop
 over layers, taking per-layer views; there is no jit, scan, vmap or
 buffer donation. ``decode_step`` writes the KV cache in place.
+``remat=True`` checkpoints each block with ``torch.utils.checkpoint``
+(non-reentrant); the JAX package's named ``jax.checkpoint_policies``
+have no counterpart here and raise.
 
 Other block kinds (MoE, Mamba-2, MLA, hybrid, enc-dec, multimodal
 frontends) raise ``NotImplementedError``; ROADMAP.md lists them.
@@ -16,6 +19,9 @@ Public API:
     init_params(cfg, gen, dtype)                  -> params
     init_lora(cfg, gen, rank, dtype)              -> lora (mirrors stacks)
     init_cache(cfg, batch, capacity, dtype, device)
+    loss_fn(cfg, params, lora, batch)             -> (loss, metrics)
+    loss_and_lora_grads(cfg, params, lora, batch) -> (loss, metrics, grads)
+    prefill(cfg, params, lora, batch)             -> last-token logits
     decode_step(cfg, params, lora, token, cache)  -> (logits, cache)
 """
 from __future__ import annotations
@@ -24,6 +30,7 @@ import math
 from typing import Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.interop import tree_leaves, tree_map
 from repro_torch.models import layers as Lyr
@@ -126,6 +133,128 @@ def init_lora(cfg, gen: torch.Generator, rank: int = 32,
             for pname, (din, dout) in sorted(
                 _block_lora_targets(cfg, kind).items())}
     return out
+
+
+# ---------------------------------------------------------------------------
+# Forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+
+def block_forward(p, cfg, kind, x, cos, sin, lora=None, *, window=None,
+                  causal=True):
+    """Pre-norm residual block over a whole sequence. Returns (y, aux);
+    aux is a zero f32 scalar for dense blocks (the MoE router loss lives
+    there in the JAX package)."""
+    assert kind == "gqa_mlp", kind
+    h = Lyr.rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = x + Lyr.gqa_attention(p["mixer"], cfg, h, cos, sin, lora=lora,
+                              window=window, causal=causal)
+    h2 = Lyr.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + Lyr.mlp(p["ffn"], h2), torch.zeros((), dtype=torch.float32,
+                                                  device=x.device)
+
+
+def _embed_inputs(cfg, params, batch):
+    """Returns (x (B,S,d), cos, sin) for a text batch (the port runs no
+    multimodal frontend, so no prefix tokens precede the text)."""
+    tokens = _on_device(batch["tokens"], params["embed"].device)
+    b, s = tokens.shape
+    x = params["embed"][tokens]
+    pos = torch.arange(s, dtype=torch.int32,
+                       device=tokens.device)[None, :].expand(b, s)
+    cos, sin = Lyr.rope_cos_sin(pos, cfg.hd, cfg.rope_theta)
+    return x, cos, sin
+
+
+def _on_device(a, device) -> torch.Tensor:
+    """A batch array (numpy or tensor) as a tensor on ``device``."""
+    return torch.as_tensor(a).to(device)
+
+
+def _run_stack(cfg, stack_params, kind, x, cos, sin, stack_lora, *,
+               window=None, remat=False):
+    """Run a homogeneous stack layer by layer (per-layer views of the
+    stacked leaves). Returns (x, total_aux)."""
+    if remat not in (False, None, True):
+        raise NotImplementedError(
+            f"remat={remat!r}: named checkpoint policies are JAX's "
+            f"(jax.checkpoint_policies); the port has remat=True (whole "
+            f"blocks) or False (ROADMAP.md)")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in range(tree_leaves(stack_params)[0].shape[0]):
+        def at(a, i=layer):
+            return a[i]
+        p = tree_map(at, stack_params)
+        lo = None if stack_lora is None else tree_map(at, stack_lora)
+
+        def body(xc, p=p, lo=lo):
+            return block_forward(p, cfg, kind, xc, cos, sin, lo,
+                                 window=window)
+        if remat:
+            x, a = checkpoint(body, x, use_reentrant=False)
+        else:
+            x, a = body(x)
+        aux = aux + a
+    return x, aux
+
+
+def forward_hidden(cfg, params, lora, batch, *, window=None, remat=False):
+    """Run all layers; returns (final-normed hidden (B,S,d), aux)."""
+    _check_ported(cfg)
+    x, cos, sin = _embed_inputs(cfg, params, batch)
+    kinds = stack_kinds(cfg)
+    total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for name, _n in cfg.layer_stacks():
+        x, aux = _run_stack(cfg, params["blocks"][name], kinds[name], x,
+                            cos, sin, lora.get(name) if lora else None,
+                            window=window, remat=remat)
+        total_aux = total_aux + aux
+    return Lyr.rms_norm(x, params["final_norm"], cfg.norm_eps), total_aux
+
+
+def loss_fn(cfg, params, lora, batch, *, window=None, remat=False):
+    """Next-token cross-entropy on the text region. Returns (total,
+    {"loss", "aux", "acc"}); labels < 0 are masked out."""
+    h, aux = forward_hidden(cfg, params, lora, batch, window=window,
+                            remat=remat)
+    logits = logits_from_hidden(cfg, params, h).float()
+    labels = _on_device(batch["labels"], logits.device).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = (nll * mask).sum() / denom
+    acc = ((torch.argmax(logits, -1) == labels) * mask).sum() / denom
+    return loss + aux, {"loss": loss, "aux": aux, "acc": acc}
+
+
+def loss_and_lora_grads(cfg, params, lora, batch, *, window=None,
+                        remat=False):
+    """``jax.value_and_grad(loss_fn, has_aux=True)`` with respect to the
+    LoRA tree: returns (total, metrics, grads), grads a tree like
+    ``lora`` in the leaves' dtypes. The frozen params get no gradient;
+    the inputs are left untouched (the leaves are differentiated through
+    detached copies)."""
+    lo = tree_map(lambda t: t.detach().requires_grad_(True), lora)
+    leaves = tree_leaves(lo)
+    with torch.enable_grad():
+        total, metrics = loss_fn(cfg, params, lo, batch, window=window,
+                                 remat=remat)
+        grads = torch.autograd.grad(total, leaves)
+    by_leaf = {id(t): g for t, g in zip(leaves, grads)}
+    return (total.detach(), {k: v.detach() for k, v in metrics.items()},
+            tree_map(lambda t: by_leaf[id(t)], lo))
+
+
+def prefill(cfg, params, lora, batch, *, window=None):
+    """Full-sequence forward; returns the last token's logits (B, 1, Vp)."""
+    h, _aux = forward_hidden(cfg, params, lora, batch, window=window)
+    return logits_from_hidden(cfg, params, h[:, -1:])
+
+
+# ---------------------------------------------------------------------------
+# Serving: decode
+# ---------------------------------------------------------------------------
 
 
 def block_decode(p, cfg, kind, x, cache, pos, cos, sin, lora=None):

@@ -5,9 +5,10 @@ package's, and the port's isolation from JAX.
   the derived fields equal the JAX package's, field for field;
 * ``interop`` moves f32, bf16 and int32 trees bit-exactly in both
   directions, keeping key structure and ``jax.tree.leaves`` order;
-* a fresh interpreter imports every ``repro_torch`` module and ends with
-  no ``jax``, ``jaxlib``, ``ml_dtypes`` or ``repro`` module loaded —
-  the port stands on torch and numpy alone.
+* a fresh interpreter imports every ``repro_torch`` module (those of
+  the serving and the training paths alike) and ends with no ``jax``,
+  ``jaxlib``, ``ml_dtypes`` or ``repro`` module loaded — the port
+  stands on torch and numpy alone.
 """
 import dataclasses
 import os
@@ -124,9 +125,22 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
-print(len(names), bad)
+print(len(names), bad, ",".join(names))
 assert not bad, bad
 """
+
+#: modules of each ported path that the isolation check must reach
+PORTED_MODULES = {
+    # serving
+    "repro_torch.kernels.flash_decode", "repro_torch.launch.serve",
+    "repro_torch.serving.engine",
+    # training
+    "repro_torch.data.synthetic", "repro_torch.optim.adamw",
+    "repro_torch.optim.schedule", "repro_torch.kernels.lora_matmul",
+    "repro_torch.kernels.flash_attention", "repro_torch.kernels.ops",
+    "repro_torch.federated.client", "repro_torch.federated.aggregation",
+    "repro_torch.launch.steps",
+}
 
 
 def test_port_imports_no_jax_and_no_repro():
@@ -137,4 +151,6 @@ def test_port_imports_no_jax_and_no_repro():
                          timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 25, out.stdout       # every subpackage was walked
+    assert n_modules >= 44, out.stdout       # every subpackage was walked
+    walked = set(out.stdout.split()[-1].split(","))
+    assert PORTED_MODULES <= walked, PORTED_MODULES - walked

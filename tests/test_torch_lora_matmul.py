@@ -1,0 +1,249 @@
+"""lora_matmul of the PyTorch port against the JAX package.
+
+On the CPU the port's ``ops.lora_matmul`` runs its plain version
+(``ref.lora_matmul_ref``: all products in f32, output in x's dtype); it
+is held against the JAX package's Pallas kernel (interpret mode) and its
+reference on the same numpy inputs. Cases mirror ``tests/test_kernels.py``
+'s lora sweep: square, ragged M/N/K (the padding path), r in {2, 4, 8,
+32}, f32 and bf16, and leading dims.
+
+Tolerances: f32 1e-5 (rtol = atol; summation order only) against both.
+bf16: 1e-2 against the JAX reference (the same all-f32 math, one bf16
+rounding of the output); 2e-2 against the Pallas kernel, which also
+rounds x@A to bf16 before the rank product (``lora_matmul.py:89``), the
+limit ``tests/test_kernels.py`` holds the two JAX versions to.
+
+The autograd Function's backward runs the products autograd through the
+plain version runs (without recomputing x@W): its gradients equal
+autograd through the plain version exactly and ``jax.vjp`` of the JAX op
+at 1e-5; the frozen ``w`` gets none, a ``w`` that asks gets one.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import dispatch as jdispatch
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models import layers as JL
+from repro_torch.kernels import dispatch, ops, ref
+from repro_torch.kernels.lora_matmul import lora_matmul_fused
+from repro_torch.models import layers as PL
+
+torch.set_num_threads(1)
+
+
+def _operands(case, x_shape, k, n, r, dtype):
+    """x, w, a, b as JAX arrays and torch tensors (w, a, b scaled by 0.1
+    as in the JAX package's sweep)."""
+    parts = [p if isinstance(p, int) else int.from_bytes(str(p).encode(),
+                                                         "big")
+             for p in case]
+    rng = np.random.default_rng(np.random.SeedSequence(parts))
+    arrays = [rng.standard_normal(x_shape, dtype=np.float32)] + [
+        0.1 * rng.standard_normal(s, dtype=np.float32)
+        for s in ((k, n), (k, r), (r, n))]
+    jx = [jnp.asarray(a).astype(dtype) for a in arrays]
+    tx = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays]
+    return jx, tx
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.detach().float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("m,k,n,r", [
+    (64, 64, 64, 8),
+    (100, 96, 72, 4),      # ragged everything: the padding path in JAX
+    (100, 96, 72, 2),
+    (37, 80, 56, 32),
+    (128, 256, 128, 32),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lora_matmul_matches_jax(m, k, n, r, dtype):
+    (jx, jw, ja, jb), (x, w, a, b) = _operands((m, k, n, r, dtype), (m, k),
+                                               k, n, r, dtype)
+    got = ops.lora_matmul(x, w, a, b, scaling=2.0)
+    assert tuple(got.shape) == (m, n) and got.dtype == x.dtype
+    want_ref = jref.lora_matmul_ref(jx, jw, ja, jb, scaling=2.0)
+    want_pallas = jops.lora_matmul(jx, jw, ja, jb, scaling=2.0, block_m=32,
+                                   block_n=32, block_k=32, interpret=True)
+    bf16 = dtype == "bfloat16"
+    _close(got, want_ref, 1e-2 if bf16 else 1e-5)
+    _close(got, want_pallas, 2e-2 if bf16 else 1e-5)
+
+
+def test_leading_dims():
+    (jx, jw, ja, jb), (x, w, a, b) = _operands(("lead",), (2, 8, 64), 64,
+                                               32, 4, "float32")
+    got = ops.lora_matmul(x, w, a, b, scaling=0.5)
+    assert tuple(got.shape) == (2, 8, 32)
+    _close(got, jops.lora_matmul(jx, jw, ja, jb, scaling=0.5, block_m=16,
+                                 block_n=16, block_k=32, interpret=True),
+           1e-5)
+
+
+def test_kernel_branch_of_proj_matches_jax_pallas(monkeypatch):
+    """``_proj`` with a 2-D adapter through the forced kernel branch
+    (``ops.lora_matmul``, the plain version on the CPU) against the JAX
+    package's ``_proj`` on its Pallas backend; f32 adapters cast to the
+    activation dtype first, bias added after."""
+    (jx, jw, ja, jb), (x, w, a, b) = _operands(("proj",), (3, 5, 48), 48,
+                                               40, 8, "float32")
+    bias = np.linspace(-1, 1, 40).astype(np.float32)
+    monkeypatch.setattr(dispatch, "use_kernel", lambda backend, device: True)
+    got = PL._proj(x, w, torch.from_numpy(bias), {"a": a, "b": b},
+                   backend="pallas")
+    want = JL._proj(jx, jw, jnp.asarray(bias), {"a": ja, "b": jb},
+                    backend="pallas")
+    _close(got, want, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the autograd Function
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("r", [2, 8])
+def test_gradients_match_plain_autograd_and_jax_vjp(r):
+    (jx, jw, ja, jb), (x, w, a, b) = _operands(("grad", r), (2, 6, 32), 32,
+                                               24, r, "float32")
+    g = np.random.default_rng(r).standard_normal((2, 6, 24)).astype(
+        np.float32)
+    leaves = [x.clone().requires_grad_(True), w,
+              a.clone().requires_grad_(True), b.clone().requires_grad_(True)]
+    out = ops.lora_matmul(*leaves, scaling=1.5)
+    got = torch.autograd.grad(out, [leaves[0], leaves[2], leaves[3]],
+                              torch.from_numpy(g))
+    plain = [t.clone().requires_grad_(True) for t in (x, a, b)]
+    want_plain = torch.autograd.grad(
+        ref.lora_matmul_ref(plain[0], w, plain[1], plain[2], scaling=1.5),
+        plain, torch.from_numpy(g))
+    _, vjp = jax.vjp(lambda x_, a_, b_: jops.lora_matmul(
+        x_, jw, a_, b_, scaling=1.5, block_m=8, block_n=8, block_k=16,
+        interpret=True), jx, ja, jb)
+    want_jax = vjp(jnp.asarray(g))
+    for gt, wp, wj in zip(got, want_plain, want_jax):
+        assert torch.equal(gt, wp)
+        _close(gt, wj, 1e-5)
+
+
+def test_weight_gradient_when_asked():
+    """Every input asks for its gradient, x with leading dims."""
+    (jx, jw, ja, jb), ops_in = _operands(("grad-w",), (3, 5, 16), 16, 12, 4,
+                                         "float32")
+    g = np.random.default_rng(4).standard_normal((3, 5, 12)).astype(
+        np.float32)
+    leaves = [t.clone().requires_grad_(True) for t in ops_in]
+    got = torch.autograd.grad(ops.lora_matmul(*leaves, scaling=0.75), leaves,
+                              torch.from_numpy(g))
+    plain = [t.clone().requires_grad_(True) for t in ops_in]
+    want_plain = torch.autograd.grad(
+        ref.lora_matmul_ref(*plain, scaling=0.75), plain, torch.from_numpy(g))
+    _, vjp = jax.vjp(lambda *t: jops.lora_matmul(
+        *t, scaling=0.75, block_m=8, block_n=8, block_k=16, interpret=True),
+        jx, jw, ja, jb)
+    for gt, wp, wj in zip(got, want_plain, vjp(jnp.asarray(g))):
+        assert torch.equal(gt, wp)
+        _close(gt, wj, 1e-5)
+
+
+def test_frozen_weight_gets_no_gradient_and_casts_carry_grads():
+    """An f32 adapter cast to bf16 before the op gets an f32 gradient
+    (JAX's cotangents take the primal dtypes); the frozen w none."""
+    _, (x, w, a, b) = _operands(("cast",), (4, 32), 32, 16, 4, "bfloat16")
+    a32 = a.float().requires_grad_(True)
+    b32 = b.float().requires_grad_(True)
+    out = ops.lora_matmul(x, w, a32.to(x.dtype), b32.to(x.dtype))
+    out.float().sum().backward()
+    assert a32.grad.dtype == torch.float32 and b32.grad.dtype == torch.float32
+    assert w.grad is None and x.grad is None
+
+
+# ---------------------------------------------------------------------------
+# registry resolution by device
+# ---------------------------------------------------------------------------
+
+
+def test_registry_and_contract_mirror_jax():
+    assert dispatch.available_kernels()["lora_matmul"] == ["pallas",
+                                                           "reference"]
+    mine = dispatch.kernel_contracts()["lora_matmul"]
+    theirs = jdispatch.kernel_contracts()["lora_matmul"]
+    assert (mine.family, mine.out) == (theirs.family, theirs.out) \
+        == ("lora", "x@w")
+
+
+@pytest.mark.parametrize("backend", ["auto", "pallas", "reference"])
+def test_cpu_tensors_get_the_plain_version(backend):
+    assert dispatch.get_kernel("lora_matmul", backend, "cpu") \
+        is ref.lora_matmul_ref
+
+
+def test_cuda_resolution_rule(monkeypatch):
+    assert dispatch.get_kernel("lora_matmul", "reference", "cuda") \
+        is ref.lora_matmul_ref
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda device=None: (9, 0))
+    for backend in ("auto", "pallas"):
+        assert dispatch.get_kernel("lora_matmul", backend, "cuda") \
+            is lora_matmul_fused
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda device=None: (8, 0))
+    with pytest.raises(RuntimeError, match="capability"):
+        dispatch.get_kernel("lora_matmul", "pallas", "cuda")
+
+
+def test_hopper_wrapper_refuses_cpu_tensors():
+    _, (x, w, a, b) = _operands(("cpu",), (4, 16), 16, 8, 2, "float32")
+    before = lora_matmul_fused.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        lora_matmul_fused(x, w, a, b)
+    assert lora_matmul_fused.launches == before
+
+
+def test_decode_path_never_takes_the_kernel_branch(monkeypatch):
+    """Serving's ``gqa_qkv`` call passes no backend: ``_proj`` asks the
+    predicate with ``reference`` and keeps the plain path."""
+    asked = []
+    real = dispatch.use_kernel
+
+    def spy(backend, device):
+        asked.append(backend)
+        return real(backend, device)
+    monkeypatch.setattr(dispatch, "use_kernel", spy)
+    _, (x, w, a, b) = _operands(("decode",), (2, 1, 16), 16, 8, 2,
+                                "float32")
+    PL._proj(x, w, None, {"a": a, "b": b})
+    assert asked == ["reference"]
+
+
+# ---------------------------------------------------------------------------
+# the Hopper kernel (needs the card)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n,r", [(512, 1024, 768, 32), (333, 200, 136, 8),
+                                     (130, 97, 75, 2)])
+def test_hopper_kernel_matches_plain_version(dtype, m, k, n, r):
+    """Row-scaled limits (max|out - want| / max|want| per output row):
+    f32 1e-5 (summation order only); bf16 2**-6: the kernel rounds x@A
+    to bf16 (as the TPU kernel does) and the plain version does not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the Hopper kernel has no CPU mode)")
+    _, tx = _operands(("gpu", dtype, m, k), (m, k), k, n, r, dtype)
+    x, w, a, b = (t.cuda() for t in tx)
+    before = lora_matmul_fused.launches
+    got = ops.lora_matmul(x, w, a, b, scaling=2.0)
+    want = ref.lora_matmul_ref(x, w, a, b, scaling=2.0)
+    torch.cuda.synchronize()
+    assert lora_matmul_fused.launches == before + 1
+    diff = (got.float() - want.float()).abs().amax(-1)
+    err = float((diff / want.float().abs().amax(-1)).max())
+    assert err <= (1e-5 if dtype == "float32" else 2.0 ** -6)
