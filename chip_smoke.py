@@ -5,16 +5,18 @@
 
 Builds every Hopper kernel from the sources in this checkout, holds
 each against its plain PyTorch version on the card and times both, then
-drives the serving path (qwen2-7b) and the training path (llama2-7b-
-proxy, one FedAvg round) through the port's own entry points at full
+drives the serving path (qwen2-7b), the training path (llama2-7b-
+proxy, one FedAvg round) and DevFT's training entry point (granite-moe-
+1b-a400m, four stages) through the port's own entry points at full
 width with random weights, and checks card-vs-CPU parity at reduced
 sizes. Phases, in order:
 
 1. device: card, power limit, versions, kernel build time, ptxas lines;
-2. kernels: ``flash_decode``, ``lora_matmul`` and ``flash_attention``
-   vs their plain versions (max abs error and error scaled to each
-   row's output size) and times of kernel, plain version and a PyTorch
-   yardstick the port never calls, beside the bound;
+2. kernels: ``flash_decode``, ``lora_matmul``, ``flash_attention`` and
+   ``moe_expert_ffn`` vs their plain versions (max abs error and error
+   scaled to each row's output size; exact zeros for empty MoE rows) and
+   times of kernel, plain version and a PyTorch yardstick the port
+   never calls, beside the bound;
 3. serving: qwen2-7b unreduced (28 layers, d 3584, 28/4 heads, vocab
    152064), bf16, 4 resident rank-8 adapters, 8 slots, 16 requests;
    ``flash_decode`` must have launched once per layer per engine step,
@@ -32,7 +34,18 @@ sizes. Phases, in order:
 7. train parity: full-width loss through the kernels vs the plain path
    on the card; reduced llama2-7b-proxy and qwen2-7b in f32, loss and
    every LoRA gradient on the card (kernels) vs the CPU (plain), and
-   3 local steps of ``make_local_train``.
+   3 local steps of ``make_local_train``;
+8. devft: granite-moe-1b-a400m unreduced (24 layers, d 1024, 16/8
+   heads of 64, 32 experts top 8 of width 512, vocab 49155), bf16
+   params, rank-32 f32 LoRA, through ``repro_torch.launch.train``'s spec
+   resolution and ``run_experiment``: DevFT, 4 rounds in 4 stages
+   (capacities 3, 6, 12, 24), 2 of 20 clients x 2 local steps of 4 x
+   1024 tokens; exact launch counts (``moe_expert_ffn`` and
+   ``flash_attention`` 225, ``lora_matmul`` 450, ``flash_decode`` 0),
+   per-stage submodel build time, ms per local step, tokens/s and peak
+   memory, one profiled local step at capacity 24, round 0's eval loss
+   through the kernels vs the plain versions, and the card's DGLG group
+   lists against the CPU port's on the same tensors.
 
 Every phase raises on failure, so the script exits non-zero; it also
 exits non-zero, printing no result, without a CUDA card or without the
@@ -250,6 +263,11 @@ def lora_phase(lora_matmul_fused, lora_matmul_ref, seed: int = 0):
          torch.float32),
         ("lead B2 S77 K512 N640 r16 bf16", (2, 77, 512), 640, 16,
          torch.bfloat16),
+        # granite-moe-1b-a400m's W_q and W_v on the DevFT path
+        ("granite M4096 K1024 N1024 r32 bf16", (4, 1024, 1024), 1024, 32,
+         torch.bfloat16),
+        ("granite M4096 K1024 N512 r32 bf16", (4, 1024, 1024), 512, 32,
+         torch.bfloat16),
     ]
     rows = {}
     for name, xs, n, r, dt in cases:
@@ -341,6 +359,9 @@ def attention_phase(flash_attention_bshd, attention_bshd_ref,
         ("full S512 bf16", 2, 512, 8, 8, 128, False, None, torch.bfloat16),
         ("ragged S300 gqa causal f32", 2, 300, 8, 2, 64, True, None,
          torch.float32),
+        # granite-moe-1b-a400m on the DevFT path: head dim 64, GQA 2:1
+        ("granite B4 S1024 H16/8 D64 causal bf16", 4, 1024, 16, 8, 64, True,
+         None, torch.bfloat16),
     ]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
@@ -401,6 +422,7 @@ def serving_phase(seed: int = 0):
     from repro_torch.kernels.flash_attention import flash_attention_bshd
     from repro_torch.kernels.flash_decode import flash_decode_bhrd
     from repro_torch.kernels.lora_matmul import lora_matmul_fused
+    from repro_torch.kernels.moe_ffn import moe_expert_ffn_ecd
     from repro_torch.models import transformer as T
     from repro_torch.serving import AdapterRegistry, ServingEngine
 
@@ -434,7 +456,9 @@ def serving_phase(seed: int = 0):
     prompts = [rng.integers(0, cfg.vocab, size=n, dtype=np.int32)
                for n in lens]
 
-    for fn in (flash_decode_bhrd, lora_matmul_fused, flash_attention_bshd):
+    kernels = (flash_decode_bhrd, lora_matmul_fused, flash_attention_bshd,
+               moe_expert_ffn_ecd)
+    for fn in kernels:
         fn.launches = 0
     t_warm = time.perf_counter()
     engine.warmup()
@@ -449,10 +473,9 @@ def serving_phase(seed: int = 0):
         steps += 1
     wall = time.perf_counter() - t0
     launches = flash_decode_bhrd.launches
-    check(lora_matmul_fused.launches == flash_attention_bshd.launches == 0,
-          f"the decode path launched training kernels: lora_matmul "
-          f"{lora_matmul_fused.launches}, flash_attention "
-          f"{flash_attention_bshd.launches}")
+    check(all(fn.launches == 0 for fn in kernels[1:]),
+          f"the decode path launched training kernels: "
+          f"{ {fn.__name__: fn.launches for fn in kernels[1:]} }")
 
     check(all(r.done for r in reqs), "not every request finished")
     for r in reqs:
@@ -605,6 +628,7 @@ def train_phase(seed: int = 0):
     from repro_torch.kernels.flash_attention import flash_attention_bshd
     from repro_torch.kernels.flash_decode import flash_decode_bhrd
     from repro_torch.kernels.lora_matmul import lora_matmul_fused
+    from repro_torch.kernels.moe_ffn import moe_expert_ffn_ecd
     from repro_torch.launch.steps import make_federated_round_step
     from repro_torch.models import transformer as T
 
@@ -631,7 +655,8 @@ def train_phase(seed: int = 0):
           f"{time.perf_counter() - t0:.1f} s")
 
     round_step = make_federated_round_step(cfg, k_local=k_local, remat=False)
-    kernels = (flash_decode_bhrd, lora_matmul_fused, flash_attention_bshd)
+    kernels = (flash_decode_bhrd, lora_matmul_fused, flash_attention_bshd,
+               moe_expert_ffn_ecd)
     local = make_local_train(cfg)
     one = {k: v[0, :1] for k, v in batches.items()}
     # one untimed local step first: cuBLAS's first use at these shapes
@@ -642,7 +667,8 @@ def train_phase(seed: int = 0):
     forwards = n_clients * k_local
     want = {"flash_decode_bhrd": 0,
             "lora_matmul_fused": 2 * cfg.n_layers * forwards,
-            "flash_attention_bshd": cfg.n_layers * forwards}
+            "flash_attention_bshd": cfg.n_layers * forwards,
+            "moe_expert_ffn_ecd": 0}
     walls = []
     for _ in range(TRAIN_ROUNDS):
         for fn in kernels:
@@ -759,6 +785,301 @@ def train_parity_phase(cfg, params, lora, batches, seed: int = 0):
               f"{float(mh['loss_first']):.6f} -> {float(mh['loss_last']):.6f}")
 
 
+#: moe_expert_ffn limits on the row-scaled error (max |out - want| /
+#: max |want| over each (expert, slot) row that is not empty). f32: 1e-5
+#: against both versions, summation order only. bf16: 2**-5 against the
+#: plain version, which rounds gate, up, the SwiGLU and the hidden to
+#: bf16 where the kernel rounds the hidden only (up to four bf16 ulps of
+#: the row's size); 2**-6 against the kernel's own arithmetic in plain
+#: PyTorch (f32 inside, one rounding), from which it differs by the
+#: hidden's rounding and the output's. Empty rows must be exact zeros.
+MOE_ROW_TOL = {torch.float32: (1e-5, 1e-5),
+               torch.bfloat16: (2.0 ** -5, 2.0 ** -6)}
+
+
+def moe_phase(moe_expert_ffn_ecd, moe_expert_ffn_ref, seed: int = 0):
+    """moe_expert_ffn vs its plain version; the path shape is one MoE
+    layer of the granite-moe-1b-a400m training step (4 x 1024 tokens,
+    top 8 of 32 experts, capacity 1280)."""
+    dev = "cuda"
+    rng = np.random.default_rng(np.random.SeedSequence((seed, 7)))
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    cases = [  # name, E, C, d, ff, dtype, empty experts
+        ("path E32 C1280 d1024 ff512 bf16", 32, 1280, 1024, 512,
+         torch.bfloat16, False),
+        ("path E32 C1280 d1024 ff512 f32", 32, 1280, 1024, 512,
+         torch.float32, False),
+        ("path with empty experts bf16", 32, 1280, 1024, 512,
+         torch.bfloat16, True),
+        ("ragged E8 C1000 d1000 ff500 bf16", 8, 1000, 1000, 500,
+         torch.bfloat16, True),
+        ("ragged E3 C77 d1001 ff91 bf16", 3, 77, 1001, 91, torch.bfloat16,
+         True),
+        ("ragged E3 C77 d1001 ff91 f32", 3, 77, 1001, 91, torch.float32,
+         True),
+    ]
+
+    def bmm_ffn(buf, wg, wu, wd):
+        h = torch.nn.functional.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
+        return torch.bmm(h, wd)
+
+    rows = {}
+    for name, e, c, d, ff, dt, empty in cases:
+        def rand(*shape, std=1.0):
+            a = rng.standard_normal(shape, dtype=np.float32) * std
+            return torch.from_numpy(a).to(dev).to(dt)
+        buf = rand(e, c, d)
+        wg, wu = rand(e, d, ff, std=d ** -0.5), rand(e, d, ff, std=d ** -0.5)
+        wd = rand(e, ff, d, std=ff ** -0.5)
+        if empty:
+            # slots past each expert's fill are zero, and a few experts
+            # got no token at all
+            fill = torch.from_numpy(rng.integers(0, c + 1, size=e)).to(dev)
+            fill[:max(1, e // 8)] = 0
+            buf *= (torch.arange(c, device=dev)[None, :]
+                    < fill[:, None])[..., None].to(dt)
+        out = moe_expert_ffn_ecd(buf, wg, wu, wd)
+        want = moe_expert_ffn_ref(buf, wg, wu, wd)
+        f32 = moe_expert_ffn_ref(buf.float(), wg.float(), wu.float(),
+                                 wd.float())
+        torch.cuda.synchronize()
+        check(out.dtype == want.dtype and out.shape == want.shape,
+              f"moe {name}: {out.dtype}{tuple(out.shape)} vs plain "
+              f"{want.dtype}{tuple(want.shape)}")
+        live = (buf != 0).any(-1)
+        check(bool((out[~live] == 0).all()),
+              f"moe {name}: an empty row is not exactly zero")
+        if empty:
+            check(bool((~live).any()), f"moe {name}: no empty row")
+        size = want.float().abs().amax(-1)[live]
+        diff = (out.float() - want.float()).abs()
+        err = float(diff.max())
+        row_err = float((diff.amax(-1)[live] / size).max())
+        row_err32 = float(((out.float() - f32).abs().amax(-1)[live]
+                           / f32.abs().amax(-1)[live]).max())
+        tol, tol32 = MOE_ROW_TOL[dt]
+        check(row_err <= tol,
+              f"moe {name}: row-scaled error vs plain {row_err} > {tol}")
+        check(row_err32 <= tol32, f"moe {name}: row-scaled error vs the "
+              f"f32-inside version {row_err32} > {tol32}")
+        esz = buf.element_size()
+        bytes_moved = esz * (2 * buf.numel() + wg.numel() + wu.numel()
+                             + wd.numel())
+        flops = 6 * e * c * d * ff
+        bound_ms, bound_by = _bound(
+            bytes_moved, flops,
+            BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
+        ms = time_cuda(lambda: moe_expert_ffn_ecd(buf, wg, wu, wd), flush)
+        plain_ms = time_cuda(lambda: moe_expert_ffn_ref(buf, wg, wu, wd),
+                             flush)
+        # yardstick only: the same function as three torch.bmm calls and
+        # silu * mul; no single PyTorch call computes it, so the kernels
+        # line carries library_ms null
+        bmm_ms = time_cuda(lambda: bmm_ffn(buf, wg, wu, wd), flush)
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=None)
+        print(f"[kernel] moe_expert_ffn {name}: err={err:.3g} row-scaled "
+              f"{row_err:.3g} (tol {tol:.3g}), vs f32-inside "
+              f"{row_err32:.3g} (tol {tol32:.3g}), empty rows "
+              f"{int((~live).sum())} exact zeros | kernel "
+              f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bmm "
+              f"{bmm_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us "
+              f"({bound_by}; {flops / 1e9:.2f} GFLOP, "
+              f"{bytes_moved / 1e6:.2f} MB; {100 * bound_ms / ms:.1f}% of "
+              f"bound, {flops / ms / 1e9:.1f} TFLOP/s)")
+    del flush
+    return rows
+
+
+def devft_phase(seed: int = 0):
+    """DevFT on granite-moe-1b-a400m at full width through the training
+    entry point (the CLI's own spec resolution, then ``run_experiment``):
+    four stages of one round each, capacities 3 -> 6 -> 12 -> 24."""
+    import dataclasses
+
+    from repro_torch.core import make_groups, similarity_matrix
+    from repro_torch.core.grouping import layer_vectors
+    from repro_torch.experiments import run_experiment
+    from repro_torch.federated import simulator
+    from repro_torch.federated.client import make_local_train
+    from repro_torch.federated.methods.devft import DevFT
+    from repro_torch.interop import tree_map
+    from repro_torch.kernels.flash_attention import flash_attention_bshd
+    from repro_torch.kernels.flash_decode import flash_decode_bhrd
+    from repro_torch.kernels.lora_matmul import lora_matmul_fused
+    from repro_torch.kernels.moe_ffn import moe_expert_ffn_ecd
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+
+    argv = ["--arch", "granite-moe-1b-a400m", "--full", "--method", "devft",
+            "--rounds", "4", "--n-stages", "4", "--n-clients", "20",
+            "--sample-frac", "0.1", "--k-local", "2", "--local-batch", "4",
+            "--seq", "1024", "--lora-rank", "32", "--pretrain-steps", "0",
+            "--seed", str(seed)]
+    spec = train.spec_from_args(train.build_parser().parse_args(argv))
+    cfg = spec.build_cfg()
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+           cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_ff_expert, cfg.vocab,
+           cfg.tie_embeddings)
+          == (24, 1024, 16, 8, 64, 32, 8, 512, 49155, True),
+          f"granite-moe-1b-a400m config changed: {cfg}")
+    k, b, s = spec.k_local, spec.local_batch, spec.seq
+
+    # instrumentation, removed at the end: each stage's submodel build
+    # (DGLG + DBLF on the card) and each client's K local steps, timed
+    # with a synchronize on both sides; round 0's eval inputs, kept for
+    # the reference-backend check
+    stages, evals = [], []
+    on_stage, make_local, ev = (DevFT.on_stage, simulator.make_local_train,
+                                simulator.FederatedRunner._eval)
+
+    def timed_on_stage(self, state, stage):
+        if stages:
+            stages[-1]["peak"] = torch.cuda.max_memory_allocated()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        on_stage(self, state, stage)
+        torch.cuda.synchronize()
+        sub = state["sub"]
+        stages.append(dict(stage=stage, capacity=sub.capacity,
+                           build_s=time.perf_counter() - t0,
+                           plan=sub.plan["layers"]["groups"],
+                           lora_in=tree_map(lambda t: t.cpu(),
+                                            state["lora"]["layers"]),
+                           params=state["params"], local_s=[]))
+
+    def timed_make_local(sub_cfg, **kw):
+        local = make_local(sub_cfg, **kw)
+
+        def run(*a, **kw2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = local(*a, **kw2)
+            torch.cuda.synchronize()
+            stages[-1]["local_s"].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def kept_eval(self, cfg_, params, lora, batch):
+        out = ev(self, cfg_, params, lora, batch)
+        if not evals:
+            evals.append((cfg_, params, lora, batch, out))
+        return out
+
+    kernels = (flash_decode_bhrd, lora_matmul_fused, flash_attention_bshd,
+               moe_expert_ffn_ecd)
+    DevFT.on_stage = timed_on_stage
+    simulator.make_local_train = timed_make_local
+    simulator.FederatedRunner._eval = kept_eval
+    try:
+        for fn in kernels:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        result = run_experiment(spec, device="cuda", dtype=torch.bfloat16,
+                                round_progress=lambda log: print(
+                                    f"[devft] round {log.round} stage "
+                                    f"{log.stage} cap {log.capacity:2d} "
+                                    f"eval loss {log.eval_loss:.4f} acc "
+                                    f"{log.eval_acc:.4f} up "
+                                    f"{log.comm_bytes_up / 1e6:.2f} MB "
+                                    f"flops {log.flops:.3g}"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stages[-1]["peak"] = torch.cuda.max_memory_allocated()
+        launches = {fn.__name__: fn.launches for fn in kernels}
+    finally:
+        DevFT.on_stage = on_stage
+        simulator.make_local_train = make_local
+        simulator.FederatedRunner._eval = ev
+
+    caps = [st["capacity"] for st in stages]
+    check(caps == [3, 6, 12, 24], f"stage capacities {caps}")
+    check([log.capacity for log in result.logs] == caps,
+          f"round capacities {[log.capacity for log in result.logs]}")
+    n_clients = max(1, int(spec.n_clients * spec.sample_frac))
+    # every forward runs each kernel once per layer (lora_matmul twice:
+    # W_q and W_v): n_clients x K local steps and one eval per round,
+    # one round per stage; the backward and DGLG/DBLF launch none
+    forwards_layers = (n_clients * k + 1) * sum(caps)
+    want = {"flash_decode_bhrd": 0, "lora_matmul_fused": 2 * forwards_layers,
+            "flash_attention_bshd": forwards_layers,
+            "moe_expert_ffn_ecd": forwards_layers}
+    check(launches == want, f"launches {launches}, want {want}")
+    check(forwards_layers == 225, f"{forwards_layers} forward layers")
+    for log in result.logs:
+        check(np.isfinite(log.eval_loss) and 0 <= log.eval_acc <= 1,
+              f"round {log.round}: eval {log.eval_loss} {log.eval_acc}")
+    check(all(bool(torch.isfinite(t).all())
+              for t in _leaves(result.final_lora)), "non-finite final LoRA")
+    print(f"[devft] granite-moe-1b-a400m full width, bf16 params, rank-"
+          f"{spec.lora_rank} f32 LoRA, {spec.rounds} rounds of {n_clients} "
+          f"clients x {k} local steps x {b} x {s} tokens: wall {wall:.1f} s; "
+          f"launches {launches}")
+    for st in stages:
+        t = st["local_s"]
+        check(len(t) == n_clients, f"stage {st['stage']}: {len(t)} clients")
+        step_ms = 1e3 * t[-1] / k
+        print(f"[devft] stage {st['stage']} capacity {st['capacity']:2d}: "
+              f"submodel build (DGLG + DBLF) {st['build_s'] * 1e3:.1f} ms; "
+              f"local steps {', '.join(f'{1e3 * x / k:.1f}' for x in t)} ms "
+              f"per step (first client includes first use), "
+              f"{step_ms:.1f} ms per step, {k * b * s / t[-1]:.0f} tokens/s; "
+              f"peak {st['peak'] / 2**30:.2f} GiB")
+
+    # one local step of the full (capacity-24) model under the profiler
+    full = stages[-1]["params"]
+    lora = tree_map(lambda t: t.cuda(), stages[-1]["lora_in"])
+    rng = np.random.default_rng(np.random.SeedSequence((seed, 8)))
+    one = {key: rng.integers(0, cfg.vocab, (1, b, s), dtype=np.int32)
+           for key in ("tokens", "labels")}
+    local = make_local_train(cfg)
+    local(full, {"layers": lora}, one, spec.lr)
+    _profile("devft", "one profiled local step at capacity 24 (forward, "
+             "backward, AdamW)", lambda: local(full, {"layers": lora}, one,
+                                               spec.lr))
+
+    # round 0's eval loss: through the kernels vs the plain versions
+    cfg0, params0, lora0, batch0, (loss0, _) = evals[0]
+    with torch.no_grad():
+        _, m = T.loss_fn(dataclasses.replace(
+            cfg0, kernel_backend="reference"), params0, lora0, batch0)
+    plain = m["loss"]                    # the logged eval loss, aux apart
+    rel = abs(loss0 - float(plain)) / abs(float(plain))
+    check(loss0 == result.logs[0].eval_loss, "round 0 eval loss not logged")
+    check(rel <= 1e-2, f"round 0 eval loss: kernels {loss0} vs plain "
+          f"{float(plain)} (rel {rel})")
+    print(f"[devft] round 0 eval loss (capacity {cfg0.n_layers}, 16 x {s} "
+          f"tokens): kernels {loss0:.5f}, plain versions {float(plain):.5f}, "
+          f"rel diff {rel:.3g} (tol 1e-2)")
+
+    # DGLG group lists: the card's against the CPU port's on the same
+    # tensors; a difference is reported with the similarities and the
+    # Laplacian's eigen-gap
+    stack_cpu = tree_map(lambda t: t.cpu(), full["blocks"]["layers"])
+    for st in stages[:-1]:
+        lo_cpu = st["lora_in"]
+        w_cpu = similarity_matrix(layer_vectors(stack_cpu, lo_cpu))
+        w_card = similarity_matrix(layer_vectors(
+            full["blocks"]["layers"],
+            tree_map(lambda t: t.cuda(), lo_cpu))).cpu()
+        groups = make_groups("dglg", stack_cpu, lo_cpu, st["capacity"],
+                             seed=(spec.seed, st["stage"]))
+        w = w_cpu.double().numpy().copy()
+        np.fill_diagonal(w, 0.0)
+        ev_ = np.linalg.eigvalsh(np.diag(w.sum(1)) - w)
+        gap = ev_[st["capacity"]] - ev_[st["capacity"] - 1]
+        same = groups == st["plan"]
+        print(f"[devft] stage {st['stage']} groups (card) {st['plan']}; CPU "
+              f"port {'equal' if same else groups}; max |W card - W cpu| "
+              f"{float((w_card - w_cpu).abs().max()):.3g}, W in "
+              f"[{float(w_cpu.min()):.4f}, {float(w_cpu.max()):.4f}], "
+              f"eigen-gap {gap:.3g}")
+    del stages, evals, full
+    return launches
+
+
 def _leaves(tree):
     from repro_torch.interop import tree_leaves
     return tree_leaves(tree)
@@ -778,6 +1099,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention_bshd
     from repro_torch.kernels.flash_decode import flash_decode_bhrd
     from repro_torch.kernels.lora_matmul import lora_matmul_fused
+    from repro_torch.kernels.moe_ffn import moe_expert_ffn_ecd
     from repro_torch.launch.serve import setup_numerics
 
     t_start = time.perf_counter()
@@ -787,6 +1109,7 @@ def main() -> int:
     lora_rows = lora_phase(lora_matmul_fused, ref.lora_matmul_ref)
     flash_rows = attention_phase(flash_attention_bshd,
                                  ref.attention_bshd_ref)
+    moe_rows = moe_phase(moe_expert_ffn_ecd, ref.moe_expert_ffn_ref)
     engine, prompts, steps, launches = serving_phase()
     trace_phase(engine, prompts)
     del engine
@@ -796,6 +1119,8 @@ def main() -> int:
     train_launches = train[-1]
     train_parity_phase(*train[:-1])
     del train
+    torch.cuda.empty_cache()
+    devft_launches = devft_phase()
     torch.cuda.empty_cache()
 
     kernels = {"kernels": [
@@ -813,6 +1138,11 @@ def main() -> int:
              replaces="src/repro/kernels/flash_attention.py:126",
              launches=train_launches["flash_attention_bshd"],
              **flash_rows["path B4 S1024 H32 D128 causal bf16"]),
+        dict(name="moe_expert_ffn", route="cuda",
+             source="src/repro_torch/kernels/csrc/moe_ffn.cu",
+             replaces="src/repro/kernels/moe_ffn.py:92",
+             launches=devft_launches["moe_expert_ffn_ecd"],
+             **moe_rows["path E32 C1280 d1024 ff512 bf16"]),
     ]}
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

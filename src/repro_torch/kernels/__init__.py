@@ -15,4 +15,5 @@ from repro_torch.kernels.ops import (  # noqa: F401
     flash_attention,
     flash_decode,
     lora_matmul,
+    moe_expert_ffn,
 )

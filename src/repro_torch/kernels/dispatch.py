@@ -149,6 +149,7 @@ def _ensure_builtin_kernels() -> None:
     from repro_torch.kernels.flash_attention import flash_attention_bshd
     from repro_torch.kernels.flash_decode import flash_decode_bhrd
     from repro_torch.kernels.lora_matmul import lora_matmul_fused
+    from repro_torch.kernels.moe_ffn import moe_expert_ffn_ecd
 
     # whole-sequence causal / windowed attention (training and prefill)
     register_kernel("flash_attention", "pallas", flash_attention_bshd)
@@ -159,6 +160,11 @@ def _ensure_builtin_kernels() -> None:
     register_kernel("lora_matmul", "pallas", lora_matmul_fused)
     register_kernel("lora_matmul", "reference", ref.lora_matmul_ref)
     declare_kernel_contract("lora_matmul", family="lora", out="x@w")
+    # batched expert SwiGLU over (E, C, d) capacity buffers (MoE blocks)
+    register_kernel("moe_expert_ffn", "pallas", moe_expert_ffn_ecd)
+    register_kernel("moe_expert_ffn", "reference", ref.moe_expert_ffn_ref)
+    declare_kernel_contract("moe_expert_ffn", family="moe_ffn",
+                            out="like:buf")
 
     # single-token ragged-cache decode attention (the serving step's
     # kernel); out="q^v": absorbed-MLA decode attends latents whose v

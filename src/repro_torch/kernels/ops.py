@@ -5,11 +5,11 @@ of its tensors: a CPU tensor runs the plain PyTorch version
 (``repro_torch.kernels.ref``), a CUDA tensor launches the Hopper kernel
 or raises — there is no fallback to the plain version on the card.
 
-``flash_attention`` and ``lora_matmul`` sit on the training path, so
-each is a ``torch.autograd.Function`` (the JAX package's ``custom_vjp``):
-the forward runs the kernel, the backward is the gradient of the plain
-version on the saved inputs. The JAX package has no backward kernel for
-either op, so neither has one here.
+``flash_attention``, ``lora_matmul`` and ``moe_expert_ffn`` sit on the
+training path, so each is a ``torch.autograd.Function`` (the JAX
+package's ``custom_vjp``): the forward runs the kernel, the backward is
+the gradient of the plain version on the saved inputs. The JAX package
+has no backward kernel for any of them, so none has one here.
 """
 from __future__ import annotations
 
@@ -104,3 +104,33 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     dtype. ``scaling`` = alpha/r (``lora_scaling``), a Python float
     passed to the kernel by value. Returns (..., N) in ``x.dtype``."""
     return _LoraMatmul.apply(x, w, a, b, float(scaling), backend)
+
+
+class _MoeExpertFfn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, buf, wg, wu, wd, backend):
+        ctx.save_for_backward(buf, wg, wu, wd)
+        return dispatch.get_kernel("moe_expert_ffn", backend, buf.device)(
+            buf, wg, wu, wd)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        """Autograd through ``moe_expert_ffn_ref`` on the saved inputs,
+        for the inputs that need a gradient (on the training path the
+        experts are frozen: only ``buf``)."""
+        need = ctx.needs_input_grad[:4]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n)
+                      for t, n in zip(ctx.saved_tensors, need)]
+            out = ref.moe_expert_ffn_ref(*leaves)
+            grads = iter(torch.autograd.grad(
+                out, [t for t, n in zip(leaves, need) if n], grad_out))
+        return (*(next(grads) if n else None for n in need), None)
+
+
+def moe_expert_ffn(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                   wd: torch.Tensor, *, backend: str = "auto"
+                   ) -> torch.Tensor:
+    """buf (E, C, d); wg, wu (E, d, ff); wd (E, ff, d), one dtype.
+    Returns (E, C, d) in ``buf.dtype``."""
+    return _MoeExpertFfn.apply(buf, wg, wu, wd, backend)

@@ -79,3 +79,16 @@ def lora_matmul_ref(x, w, a, b, *, scaling: float = 1.0):
     lo = (x2 @ a.float()) @ b.float()
     out = (y + scaling * lo).to(x.dtype)
     return out.reshape(*lead, w.shape[1])
+
+
+def moe_expert_ffn_ref(buf, wg, wu, wd):
+    """Batched SwiGLU over per-expert capacity buffers (the JAX package's
+    ``expert_ffn_reference``): buf (E, C, d); wg, wu (E, d, ff); wd
+    (E, ff, d) -> (E, C, d). Each einsum runs in the input dtype, as in
+    JAX, so in bf16 gate, up, the SwiGLU and the output each round. The
+    plain version of the ``moe_expert_ffn`` kernel and the function its
+    backward differentiates; the kernel's own arithmetic (f32 inside, one
+    rounding) is this function on f32 copies, rounded once."""
+    h = torch.nn.functional.silu(torch.einsum("ecd,edf->ecf", buf, wg)) \
+        * torch.einsum("ecd,edf->ecf", buf, wu)
+    return torch.einsum("ecf,efd->ecd", h, wd)

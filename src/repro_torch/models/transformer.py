@@ -1,6 +1,6 @@
-"""The whole model, dense path: GQA attention + SwiGLU MLP blocks
-(``gqa_mlp``) — the training and serving paths of the dense archs
-(qwen2-7b, llama2-7b-proxy, phi4-mini, qwen3, minicpm).
+"""The whole model: GQA attention blocks with a SwiGLU MLP (``gqa_mlp``:
+qwen2-7b, llama2-7b-proxy, phi4-mini, qwen3, minicpm) or a top-k MoE
+(``gqa_moe``: granite-moe), for training; the dense blocks also serve.
 
 Parameters keep the JAX package's *stacked* layout: every leaf of a
 layer stack carries a leading ``(L, ...)`` layer axis, so DevFT's
@@ -12,8 +12,9 @@ buffer donation. ``decode_step`` writes the KV cache in place.
 (non-reentrant); the JAX package's named ``jax.checkpoint_policies``
 have no counterpart here and raise.
 
-Other block kinds (MoE, Mamba-2, MLA, hybrid, enc-dec, multimodal
-frontends) raise ``NotImplementedError``; ROADMAP.md lists them.
+Other block kinds (Mamba-2, MLA, hybrid, enc-dec, multimodal
+frontends), and decoding with MoE blocks, raise ``NotImplementedError``;
+ROADMAP.md lists them.
 
 Public API:
     init_params(cfg, gen, dtype)                  -> params
@@ -34,9 +35,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.interop import tree_leaves, tree_map
 from repro_torch.models import layers as Lyr
+from repro_torch.models import moe as Moe
 
-#: block kinds this package runs
-PORTED_KINDS = ("gqa_mlp",)
+#: block kinds this package trains
+PORTED_KINDS = ("gqa_mlp", "gqa_moe")
+#: block kinds ``decode_step`` runs (MoE decoding is a later slice)
+DECODE_KINDS = ("gqa_mlp",)
 
 
 def stack_kinds(cfg) -> Dict[str, str]:
@@ -56,14 +60,14 @@ def stack_kinds(cfg) -> Dict[str, str]:
     return {"layers": "gqa_mlp"}
 
 
-def _check_ported(cfg) -> None:
-    kinds = sorted(set(stack_kinds(cfg).values()))
-    if kinds != list(PORTED_KINDS) or cfg.frontend or cfg.mrope:
+def _check_ported(cfg, kinds=PORTED_KINDS) -> None:
+    have = sorted(set(stack_kinds(cfg).values()))
+    if not set(have) <= set(kinds) or cfg.frontend or cfg.mrope:
         raise NotImplementedError(
-            f"{cfg.arch_id} ({cfg.family}: blocks {kinds}, frontend="
-            f"{cfg.frontend}, mrope={cfg.mrope}) is not ported yet; the port "
-            f"runs dense {list(PORTED_KINDS)} blocks (ROADMAP.md, 'Modules "
-            f"to port': MoE, Mamba-2/MLA, hybrid and frontend items)")
+            f"{cfg.arch_id} ({cfg.family}: blocks {have}, frontend="
+            f"{cfg.frontend}, mrope={cfg.mrope}) is not ported yet for this "
+            f"path; it runs {list(kinds)} blocks (ROADMAP.md, 'Modules to "
+            f"port': MoE decode, Mamba-2/MLA, hybrid and frontend items)")
 
 
 def stack_sizes(blocks: dict) -> Dict[str, int]:
@@ -77,19 +81,20 @@ def _init_block(gen: torch.Generator, cfg, kind: str, dtype,
     """One stack of ``n`` blocks of ``kind``, every leaf ``(n, ...)``."""
     d = cfg.d_model
     dev = gen.device
-    assert kind == "gqa_mlp", kind
+    assert kind in PORTED_KINDS, kind
     return {
         "ln1": torch.ones((n, d), dtype=dtype, device=dev),
         "mixer": Lyr.init_gqa(gen, cfg, dtype, lead=(n,)),
         "ln2": torch.ones((n, d), dtype=dtype, device=dev),
-        "ffn": Lyr.init_mlp(gen, d, cfg.d_ff, dtype, lead=(n,)),
+        "ffn": Moe.init_moe(gen, cfg, dtype, lead=(n,)) if kind == "gqa_moe"
+        else Lyr.init_mlp(gen, d, cfg.d_ff, dtype, lead=(n,)),
     }
 
 
 def _block_lora_targets(cfg, kind: str):
     """Which mixer projections get LoRA (paper: W_q / W_v), with their
     (d_in, d_out)."""
-    assert kind == "gqa_mlp", kind
+    assert kind in PORTED_KINDS, kind
     d = cfg.d_model
     return {"wq": (d, cfg.n_heads * cfg.hd),
             "wv": (d, cfg.n_kv_heads * cfg.hd)}
@@ -140,18 +145,27 @@ def init_lora(cfg, gen: torch.Generator, rank: int = 32,
 # ---------------------------------------------------------------------------
 
 
+def _ffn(p, cfg, kind, x):
+    """Returns (y, aux): the MoE block's router loss, or a zero f32 scalar
+    for a dense MLP."""
+    if kind == "gqa_moe":
+        b, s, d = x.shape
+        y, aux = Moe.moe_block(p["ffn"], cfg, x.reshape(b * s, d))
+        return y.reshape(b, s, d), aux
+    return Lyr.mlp(p["ffn"], x), torch.zeros((), dtype=torch.float32,
+                                             device=x.device)
+
+
 def block_forward(p, cfg, kind, x, cos, sin, lora=None, *, window=None,
                   causal=True):
-    """Pre-norm residual block over a whole sequence. Returns (y, aux);
-    aux is a zero f32 scalar for dense blocks (the MoE router loss lives
-    there in the JAX package)."""
-    assert kind == "gqa_mlp", kind
+    """Pre-norm residual block over a whole sequence. Returns (y, aux)."""
+    assert kind in PORTED_KINDS, kind
     h = Lyr.rms_norm(x, p["ln1"], cfg.norm_eps)
     x = x + Lyr.gqa_attention(p["mixer"], cfg, h, cos, sin, lora=lora,
                               window=window, causal=causal)
     h2 = Lyr.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + Lyr.mlp(p["ffn"], h2), torch.zeros((), dtype=torch.float32,
-                                                  device=x.device)
+    y, aux = _ffn(p, cfg, kind, h2)
+    return x + y, aux
 
 
 def _embed_inputs(cfg, params, batch):
@@ -272,7 +286,7 @@ def init_cache(cfg, batch: int, capacity: int, dtype=None,
                device="cuda") -> dict:
     """Stacked decode cache: per stack ``{'mixer': {'k', 'v'}}`` leaves of
     shape (L, B, C, Hkv, hd), and per-slot positions ``pos (B,)``."""
-    _check_ported(cfg)
+    _check_ported(cfg, DECODE_KINDS)
     dtype = dtype or getattr(torch, cfg.dtype)
     sizes = dict(cfg.layer_stacks())
     stacks = {name: {"mixer": Lyr.init_gqa_cache(cfg, batch, capacity, dtype,
@@ -292,7 +306,7 @@ def decode_step(cfg, params, lora, token, cache):
     ``cache`` in place and returns (logits (B, 1, Vp), {"stacks": the
     same stacks, "pos": pos + 1}); ``cache["pos"]`` itself is left as it
     was, so a caller can keep the old cursor of an inactive slot."""
-    _check_ported(cfg)
+    _check_ported(cfg, DECODE_KINDS)
     x = params["embed"][token]
     pos = cache["pos"]
     cos, sin = Lyr.rope_cos_sin(pos[:, None], cfg.hd, cfg.rope_theta)
