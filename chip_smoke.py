@@ -7,20 +7,22 @@ Builds every Hopper kernel from the sources in this checkout, holds
 each against its plain PyTorch version on the card and times both, then
 drives the serving path (qwen2-7b), the training path (llama2-7b-
 proxy, one FedAvg round) and DevFT's training entry point (granite-moe-
-1b-a400m, four stages) through the port's own entry points at full
-width with random weights, and checks card-vs-CPU parity at reduced
-sizes. Phases, in order:
+1b-a400m and mamba2-2.7b, four stages each) through the port's own
+entry points at full width with random weights, and checks card-vs-CPU
+parity at reduced sizes. Phases, in order:
 
 1. device: card, power limit, versions, kernel build time, ptxas lines;
-2. kernels: ``flash_decode``, ``lora_matmul``, ``flash_attention`` and
-   ``moe_expert_ffn`` vs their plain versions (max abs error and error
-   scaled to each row's output size; exact zeros for empty MoE rows) and
-   times of kernel, plain version and a PyTorch yardstick the port
-   never calls, beside the bound;
+2. kernels: ``flash_decode``, ``lora_matmul``, ``flash_attention``,
+   ``moe_expert_ffn`` and ``ssd_scan`` vs their plain versions (max abs
+   error and error scaled to each row's output size; exact zeros for
+   empty MoE rows; ``ssd_scan`` also vs the f32 sequential oracle, with
+   ragged S, G > 1, underflowing decays and empty dt rows) and times of
+   kernel, plain version and a PyTorch yardstick the port never calls,
+   beside the bound;
 3. serving: qwen2-7b unreduced (28 layers, d 3584, 28/4 heads, vocab
    152064), bf16, 4 resident rank-8 adapters, 8 slots, 16 requests;
    ``flash_decode`` must have launched once per layer per engine step,
-   and the decode path must launch neither training kernel;
+   and the decode path must launch none of the training kernels;
 4. trace: device busy share over a few profiled engine steps;
 5. parity: reduced qwen2-7b in f32 gives the same greedy tokens on the
    card (kernel) and on the CPU (plain version);
@@ -32,7 +34,8 @@ sizes. Phases, in order:
    have launched 2 x 32 and ``flash_attention`` 32 times per forward,
    and neither in a backward; device busy share over one profiled step;
 7. train parity: full-width loss through the kernels vs the plain path
-   on the card; reduced llama2-7b-proxy and qwen2-7b in f32, loss and
+   on the card; reduced llama2-7b-proxy, qwen2-7b and mamba2-2.7b in
+   f32, loss and
    every LoRA gradient on the card (kernels) vs the CPU (plain), and
    3 local steps of ``make_local_train``;
 8. devft: granite-moe-1b-a400m unreduced (24 layers, d 1024, 16/8
@@ -45,7 +48,12 @@ sizes. Phases, in order:
    per-stage submodel build time, ms per local step, tokens/s and peak
    memory, one profiled local step at capacity 24, round 0's eval loss
    through the kernels vs the plain versions, and the card's DGLG group
-   lists against the CPU port's on the same tensors.
+   lists against the CPU port's on the same tensors;
+9. devft on mamba2-2.7b unreduced (64 layers, d 2560, d_inner 5120, 80
+   heads of 64, N 128, G 1, chunk 256, vocab 50280) through the same
+   function with the same settings: capacities 8, 16, 32, 64; exact
+   launch counts (``ssd_scan`` 600, ``lora_matmul`` 1200 on in_proj and
+   out_proj, the other three 0); the profiled step at capacity 64.
 
 Every phase raises on failure, so the script exits non-zero; it also
 exits non-zero, printing no result, without a CUDA card or without the
@@ -268,6 +276,11 @@ def lora_phase(lora_matmul_fused, lora_matmul_ref, seed: int = 0):
          torch.bfloat16),
         ("granite M4096 K1024 N512 r32 bf16", (4, 1024, 1024), 512, 32,
          torch.bfloat16),
+        # mamba2-2.7b's in_proj and out_proj on the DevFT path
+        ("mamba M4096 K2560 N10576 r32 bf16", (4, 1024, 2560), 10576, 32,
+         torch.bfloat16),
+        ("mamba M4096 K5120 N2560 r32 bf16", (4, 1024, 5120), 2560, 32,
+         torch.bfloat16),
     ]
     rows = {}
     for name, xs, n, r, dt in cases:
@@ -423,6 +436,7 @@ def serving_phase(seed: int = 0):
     from repro_torch.kernels.flash_decode import flash_decode_bhrd
     from repro_torch.kernels.lora_matmul import lora_matmul_fused
     from repro_torch.kernels.moe_ffn import moe_expert_ffn_ecd
+    from repro_torch.kernels.ssd_scan import ssd_scan_bshp
     from repro_torch.models import transformer as T
     from repro_torch.serving import AdapterRegistry, ServingEngine
 
@@ -457,7 +471,7 @@ def serving_phase(seed: int = 0):
                for n in lens]
 
     kernels = (flash_decode_bhrd, lora_matmul_fused, flash_attention_bshd,
-               moe_expert_ffn_ecd)
+               moe_expert_ffn_ecd, ssd_scan_bshp)
     for fn in kernels:
         fn.launches = 0
     t_warm = time.perf_counter()
@@ -629,6 +643,7 @@ def train_phase(seed: int = 0):
     from repro_torch.kernels.flash_decode import flash_decode_bhrd
     from repro_torch.kernels.lora_matmul import lora_matmul_fused
     from repro_torch.kernels.moe_ffn import moe_expert_ffn_ecd
+    from repro_torch.kernels.ssd_scan import ssd_scan_bshp
     from repro_torch.launch.steps import make_federated_round_step
     from repro_torch.models import transformer as T
 
@@ -656,7 +671,7 @@ def train_phase(seed: int = 0):
 
     round_step = make_federated_round_step(cfg, k_local=k_local, remat=False)
     kernels = (flash_decode_bhrd, lora_matmul_fused, flash_attention_bshd,
-               moe_expert_ffn_ecd)
+               moe_expert_ffn_ecd, ssd_scan_bshp)
     local = make_local_train(cfg)
     one = {k: v[0, :1] for k, v in batches.items()}
     # one untimed local step first: cuBLAS's first use at these shapes
@@ -668,7 +683,7 @@ def train_phase(seed: int = 0):
     want = {"flash_decode_bhrd": 0,
             "lora_matmul_fused": 2 * cfg.n_layers * forwards,
             "flash_attention_bshd": cfg.n_layers * forwards,
-            "moe_expert_ffn_ecd": 0}
+            "moe_expert_ffn_ecd": 0, "ssd_scan_bshp": 0}
     walls = []
     for _ in range(TRAIN_ROUNDS):
         for fn in kernels:
@@ -734,7 +749,7 @@ def train_parity_phase(cfg, params, lora, batches, seed: int = 0):
     def to(tree, dev):
         return tree_map(lambda t: t.to(dev), tree)
 
-    for arch in ("llama2-7b-proxy", "qwen2-7b"):
+    for arch in ("llama2-7b-proxy", "qwen2-7b", "mamba2-2.7b"):
         rcfg = dataclasses.replace(reduce_config(get_config(arch)),
                                    dtype="float32")
         gen = torch.Generator(device="cpu").manual_seed(seed)
@@ -892,14 +907,148 @@ def moe_phase(moe_expert_ffn_ecd, moe_expert_ffn_ref, seed: int = 0):
     return rows
 
 
-def devft_phase(seed: int = 0):
-    """DevFT on granite-moe-1b-a400m at full width through the training
-    entry point (the CLI's own spec resolution, then ``run_experiment``):
-    four stages of one round each, capacities 3 -> 6 -> 12 -> 24."""
+#: ssd_scan limits on the slice-scaled error: max |out - want| over each
+#: (batch, head) slice of S x P outputs, divided by that slice's largest
+#: |want|. Not per row: an output is a difference of terms (the intra-
+#: and inter-chunk sums) that can be much larger than it, so a row can
+#: be small beside the roundings of its terms; the slice's largest
+#: output is the size of those terms. Held against the chunked plain
+#: version and the f32 sequential oracle (on f32 copies of the same
+#: inputs). f32: 1e-3 against both, the JAX package's own limit for its
+#: SSD kernel against the oracle: the chunked form takes exp of
+#: differences of cumulative sums, which reach ~-3000 within a chunk at
+#: a = -16 and are exact only to ~2.4e-4 there, and the kernel and the
+#: plain version sum them in another order. bf16: 2**-5 against the
+#: plain version, which rounds its weights, dt, both terms and their sum
+#: to bf16 (a few bf16 ulps, 2**-8 each, of the slice's size) where the
+#: kernel rounds the output only; 2**-7 against the oracle (the output's
+#: own rounding, at most half an ulp of the slice's largest output,
+#: plus the f32 error above).
+SSD_TOL = {torch.float32: (1e-3, 1e-3),
+           torch.bfloat16: (2.0 ** -5, 2.0 ** -7)}
+
+
+def _slice_scaled(got, want):
+    """(max abs error, max over (batch, head) slices of max|got - want| /
+    max|want|) for (B, S, H, P) outputs."""
+    diff = (got.float() - want.float()).abs()
+    size = want.float().abs().amax(dim=(1, 3))
+    return float(diff.max()), float((diff.amax(dim=(1, 3)) / size).max())
+
+
+def _ssd_flops(bsz, s, h, p, n, chunk):
+    """FLOPs the SSD forward needs on this shape: per (batch, head) and
+    chunk of c rows, the scores c_i . b_j and the weighted sum over x on
+    the c (c + 1) / 2 live causal pairs; the inter-chunk term for every
+    chunk but the first (the state entering it is zero) and the state
+    update for every chunk but the last (no later chunk reads it)."""
+    chunk = min(chunk, s)
+    lens = [min(chunk, s - s0) for s0 in range(0, s, chunk)]
+    pairs = sum(c * (c + 1) // 2 for c in lens)
+    inter = sum(lens[1:]) * 2 * n * p
+    update = sum(lens[:-1]) * 2 * n * p
+    return bsz * h * (pairs * 2 * (n + p) + inter + update)
+
+
+def ssd_phase(ssd_scan_bshp, ssd_chunked_ref, ssd_oracle, seed: int = 0):
+    """ssd_scan vs its plain chunked version and the f32 sequential
+    oracle; the path shape is one Mamba-2 layer of the mamba2-2.7b
+    training step (4 x 1024 tokens, 80 heads of 64, N 128, G 1, chunk
+    256), x, b and c read in place from one conv output as on the path."""
+    dev = "cuda"
+    rng = np.random.default_rng(np.random.SeedSequence((seed, 9)))
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # name, B, S, H, P, G, N, chunk, dtype, decay, empty dt rows
+        ("path B4 S1024 H80 P64 N128 G1 c256 bf16", 4, 1024, 80, 64, 1, 128,
+         256, bf16, "model", False),
+        ("path B4 S1024 H80 P64 N128 G1 c256 f32", 4, 1024, 80, 64, 1, 128,
+         256, f32, "model", False),
+        ("ragged S1000 bf16", 4, 1000, 80, 64, 1, 128, 256, bf16, "model",
+         False),
+        ("groups H64 G8 bf16", 2, 1024, 64, 64, 8, 128, 256, bf16, "model",
+         False),
+        ("underflow a=-16 dt~3 bf16", 2, 1024, 80, 64, 1, 128, 256, bf16,
+         "strong", False),
+        ("underflow a=-16 dt~3 f32", 2, 1024, 16, 64, 1, 128, 256, f32,
+         "strong", False),
+        ("empty dt rows bf16", 2, 1024, 80, 64, 1, 128, 256, bf16, "model",
+         True),
+        ("small P16 N8 G2 c16 S50 f32", 2, 50, 4, 16, 2, 8, 16, f32, "model",
+         True),
+    ]
+    rows = {}
+    for name, bsz, s, h, p, g, n, chunk, dt_, decay, empty in cases:
+        def rand(*shape, std=1.0):
+            a = rng.standard_normal(shape, dtype=np.float32) * std
+            return torch.from_numpy(a).to(dev)
+        din = h * p
+        # x, b and c as strided slices of one (B, S, din + 2 G N) tensor
+        xbc = torch.nn.functional.silu(rand(bsz, s, din + 2 * g * n)).to(dt_)
+        x = xbc[..., :din].reshape(bsz, s, h, p)
+        b = xbc[..., din:din + g * n].reshape(bsz, s, g, n)
+        c = xbc[..., din + g * n:].reshape(bsz, s, g, n)
+        shift = 3.0 if decay == "strong" else 0.0
+        dt = torch.nn.functional.softplus(rand(bsz, s, h) + shift)
+        if empty:
+            dt[:, ::7] = 0.0
+            dt[:, s // 3: s // 3 + 100] = 0.0
+        a = (torch.full((h,), -16.0, device=dev) if decay == "strong"
+             else -torch.linspace(1.0, 16.0, h, device=dev))
+        d = rand(h)
+        out = ssd_scan_bshp(x, dt, a, b, c, d, chunk=chunk)
+        want = ssd_chunked_ref(x, dt, a, b, c, d, chunk=chunk)
+        oracle = ssd_oracle(x.float(), dt, a, b.float(), c.float(), d)
+        torch.cuda.synchronize()
+        check(out.dtype == want.dtype and out.shape == want.shape,
+              f"ssd {name}: {out.dtype}{tuple(out.shape)} vs plain "
+              f"{want.dtype}{tuple(want.shape)}")
+        check(bool(torch.isfinite(out).all()), f"ssd {name}: not finite")
+        err, rel = _slice_scaled(out, want)
+        err32, rel32 = _slice_scaled(out, oracle)
+        tol, tol32 = SSD_TOL[dt_]
+        check(rel <= tol,
+              f"ssd {name}: slice-scaled error vs plain {rel} > {tol}")
+        check(rel32 <= tol32, f"ssd {name}: slice-scaled error vs the f32 "
+              f"oracle {rel32} > {tol32}")
+        esz = x.element_size()
+        bytes_moved = (esz * (2 * x.numel() + b.numel() + c.numel())
+                       + 4 * (dt.numel() + a.numel() + d.numel()))
+        flops = _ssd_flops(bsz, s, h, p, n, chunk)
+        bound_ms, bound_by = _bound(bytes_moved, flops,
+                                    BF16_FLOPS if dt_ == bf16 else F32_FLOPS)
+        ms = time_cuda(lambda: ssd_scan_bshp(x, dt, a, b, c, d, chunk=chunk),
+                       flush)
+        plain_ms = time_cuda(
+            lambda: ssd_chunked_ref(x, dt, a, b, c, d, chunk=chunk), flush)
+        # no single PyTorch call computes the SSD scan: library_ms null
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=None)
+        print(f"[kernel] ssd_scan {name}: err={err:.3g} slice-scaled "
+              f"{rel:.3g} (tol {tol:.3g}), vs f32 oracle err={err32:.3g} "
+              f"slice-scaled {rel32:.3g} (tol {tol32:.3g}) | kernel "
+              f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
+              f"{bound_ms * 1e3:.2f} us ({bound_by}; {flops / 1e9:.2f} GFLOP,"
+              f" {bytes_moved / 1e6:.2f} MB; {100 * bound_ms / ms:.1f}% of "
+              f"bound, {flops / ms / 1e9:.1f} TFLOP/s)")
+        del xbc, x, b, c, out, want, oracle
+    del flush
+    return rows
+
+
+def devft_phase(arch, config_of, want_config, want_caps, per_layer,
+                want_forward_layers, seed: int = 0):
+    """DevFT on ``arch`` at full width through the training entry point
+    (the CLI's own spec resolution, then ``run_experiment``): four
+    stages of one round each, capacities ``want_caps``. ``config_of(cfg)``
+    must equal ``want_config``; ``per_layer`` maps each wrapper to its
+    launches per layer per forward (the rest must launch none), and the
+    run makes ``want_forward_layers`` layer-forwards in all."""
     import dataclasses
 
     from repro_torch.core import make_groups, similarity_matrix
-    from repro_torch.core.grouping import layer_vectors
+    from repro_torch.core.grouping import layer_vectors, spectral_grouping
     from repro_torch.experiments import run_experiment
     from repro_torch.federated import simulator
     from repro_torch.federated.client import make_local_train
@@ -909,21 +1058,18 @@ def devft_phase(seed: int = 0):
     from repro_torch.kernels.flash_decode import flash_decode_bhrd
     from repro_torch.kernels.lora_matmul import lora_matmul_fused
     from repro_torch.kernels.moe_ffn import moe_expert_ffn_ecd
+    from repro_torch.kernels.ssd_scan import ssd_scan_bshp
     from repro_torch.launch import train
     from repro_torch.models import transformer as T
 
-    argv = ["--arch", "granite-moe-1b-a400m", "--full", "--method", "devft",
+    argv = ["--arch", arch, "--full", "--method", "devft",
             "--rounds", "4", "--n-stages", "4", "--n-clients", "20",
             "--sample-frac", "0.1", "--k-local", "2", "--local-batch", "4",
             "--seq", "1024", "--lora-rank", "32", "--pretrain-steps", "0",
             "--seed", str(seed)]
     spec = train.spec_from_args(train.build_parser().parse_args(argv))
     cfg = spec.build_cfg()
-    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-           cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_ff_expert, cfg.vocab,
-           cfg.tie_embeddings)
-          == (24, 1024, 16, 8, 64, 32, 8, 512, 49155, True),
-          f"granite-moe-1b-a400m config changed: {cfg}")
+    check(config_of(cfg) == want_config, f"{arch} config changed: {cfg}")
     k, b, s = spec.k_local, spec.local_batch, spec.seq
 
     # instrumentation, removed at the end: each stage's submodel build
@@ -969,7 +1115,7 @@ def devft_phase(seed: int = 0):
         return out
 
     kernels = (flash_decode_bhrd, lora_matmul_fused, flash_attention_bshd,
-               moe_expert_ffn_ecd)
+               moe_expert_ffn_ecd, ssd_scan_bshp)
     DevFT.on_stage = timed_on_stage
     simulator.make_local_train = timed_make_local
     simulator.FederatedRunner._eval = kept_eval
@@ -995,25 +1141,26 @@ def devft_phase(seed: int = 0):
         simulator.FederatedRunner._eval = ev
 
     caps = [st["capacity"] for st in stages]
-    check(caps == [3, 6, 12, 24], f"stage capacities {caps}")
+    check(caps == want_caps, f"stage capacities {caps}")
     check([log.capacity for log in result.logs] == caps,
           f"round capacities {[log.capacity for log in result.logs]}")
     n_clients = max(1, int(spec.n_clients * spec.sample_frac))
-    # every forward runs each kernel once per layer (lora_matmul twice:
-    # W_q and W_v): n_clients x K local steps and one eval per round,
-    # one round per stage; the backward and DGLG/DBLF launch none
+    # every forward runs each kernel of a layer per_layer times per layer
+    # (lora_matmul twice: W_q and W_v, or in_proj and out_proj):
+    # n_clients x K local steps and one eval per round, one round per
+    # stage; the backward and DGLG/DBLF launch none
     forwards_layers = (n_clients * k + 1) * sum(caps)
-    want = {"flash_decode_bhrd": 0, "lora_matmul_fused": 2 * forwards_layers,
-            "flash_attention_bshd": forwards_layers,
-            "moe_expert_ffn_ecd": forwards_layers}
+    want = {fn.__name__: per_layer.get(fn.__name__, 0) * forwards_layers
+            for fn in kernels}
     check(launches == want, f"launches {launches}, want {want}")
-    check(forwards_layers == 225, f"{forwards_layers} forward layers")
+    check(forwards_layers == want_forward_layers,
+          f"{forwards_layers} forward layers")
     for log in result.logs:
         check(np.isfinite(log.eval_loss) and 0 <= log.eval_acc <= 1,
               f"round {log.round}: eval {log.eval_loss} {log.eval_acc}")
     check(all(bool(torch.isfinite(t).all())
               for t in _leaves(result.final_lora)), "non-finite final LoRA")
-    print(f"[devft] granite-moe-1b-a400m full width, bf16 params, rank-"
+    print(f"[devft] {arch} full width, bf16 params, rank-"
           f"{spec.lora_rank} f32 LoRA, {spec.rounds} rounds of {n_clients} "
           f"clients x {k} local steps x {b} x {s} tokens: wall {wall:.1f} s; "
           f"launches {launches}")
@@ -1028,7 +1175,7 @@ def devft_phase(seed: int = 0):
               f"{step_ms:.1f} ms per step, {k * b * s / t[-1]:.0f} tokens/s; "
               f"peak {st['peak'] / 2**30:.2f} GiB")
 
-    # one local step of the full (capacity-24) model under the profiler
+    # one local step of the full model under the profiler
     full = stages[-1]["params"]
     lora = tree_map(lambda t: t.cuda(), stages[-1]["lora_in"])
     rng = np.random.default_rng(np.random.SeedSequence((seed, 8)))
@@ -1036,9 +1183,9 @@ def devft_phase(seed: int = 0):
            for key in ("tokens", "labels")}
     local = make_local_train(cfg)
     local(full, {"layers": lora}, one, spec.lr)
-    _profile("devft", "one profiled local step at capacity 24 (forward, "
-             "backward, AdamW)", lambda: local(full, {"layers": lora}, one,
-                                               spec.lr))
+    _profile("devft", f"one profiled local step at capacity {caps[-1]} "
+             f"(forward, backward, AdamW)",
+             lambda: local(full, {"layers": lora}, one, spec.lr))
 
     # round 0's eval loss: through the kernels vs the plain versions
     cfg0, params0, lora0, batch0, (loss0, _) = evals[0]
@@ -1055,8 +1202,10 @@ def devft_phase(seed: int = 0):
           f"rel diff {rel:.3g} (tol 1e-2)")
 
     # DGLG group lists: the card's against the CPU port's on the same
-    # tensors; a difference is reported with the similarities and the
-    # Laplacian's eigen-gap
+    # tensors; a difference is reported with the similarities, the
+    # Laplacian's eigen-gap, and the host clustering of the card's own W
+    # (the clustering always runs on the host in f64, so only W's f32
+    # rounding differs between the two)
     stack_cpu = tree_map(lambda t: t.cpu(), full["blocks"]["layers"])
     for st in stages[:-1]:
         lo_cpu = st["lora_in"]
@@ -1071,11 +1220,17 @@ def devft_phase(seed: int = 0):
         ev_ = np.linalg.eigvalsh(np.diag(w.sum(1)) - w)
         gap = ev_[st["capacity"]] - ev_[st["capacity"] - 1]
         same = groups == st["plan"]
+        if not same:
+            again = spectral_grouping(w_card, st["capacity"],
+                                      seed=(spec.seed, st["stage"]))
+            same_w = "equal to the card" if again == st["plan"] else again
+            groups = f"{groups} (host clustering of the card's W: {same_w})"
         print(f"[devft] stage {st['stage']} groups (card) {st['plan']}; CPU "
               f"port {'equal' if same else groups}; max |W card - W cpu| "
               f"{float((w_card - w_cpu).abs().max()):.3g}, W in "
               f"[{float(w_cpu.min()):.4f}, {float(w_cpu.max()):.4f}], "
-              f"eigen-gap {gap:.3g}")
+              f"eigen-gap {gap:.3g} (eigenvalues {ev_[st['capacity'] - 1]:.5g}"
+              f" and {ev_[st['capacity']]:.5g}, largest {ev_[-1]:.5g})")
     del stages, evals, full
     return launches
 
@@ -1100,6 +1255,7 @@ def main() -> int:
     from repro_torch.kernels.flash_decode import flash_decode_bhrd
     from repro_torch.kernels.lora_matmul import lora_matmul_fused
     from repro_torch.kernels.moe_ffn import moe_expert_ffn_ecd
+    from repro_torch.kernels.ssd_scan import ssd_scan_bshp
     from repro_torch.launch.serve import setup_numerics
 
     t_start = time.perf_counter()
@@ -1110,6 +1266,8 @@ def main() -> int:
     flash_rows = attention_phase(flash_attention_bshd,
                                  ref.attention_bshd_ref)
     moe_rows = moe_phase(moe_expert_ffn_ecd, ref.moe_expert_ffn_ref)
+    ssd_rows = ssd_phase(ssd_scan_bshp, ref.ssd_scan_bshp_chunked_ref,
+                         ref.ssd_scan_bshp_ref)
     engine, prompts, steps, launches = serving_phase()
     trace_phase(engine, prompts)
     del engine
@@ -1120,7 +1278,23 @@ def main() -> int:
     train_parity_phase(*train[:-1])
     del train
     torch.cuda.empty_cache()
-    devft_launches = devft_phase()
+    granite_launches = devft_phase(
+        "granite-moe-1b-a400m",
+        lambda c: (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads, c.hd,
+                   c.moe.n_experts, c.moe.top_k, c.moe.d_ff_expert, c.vocab,
+                   c.tie_embeddings),
+        (24, 1024, 16, 8, 64, 32, 8, 512, 49155, True), [3, 6, 12, 24],
+        {"lora_matmul_fused": 2, "flash_attention_bshd": 1,
+         "moe_expert_ffn_ecd": 1}, 225)
+    torch.cuda.empty_cache()
+    from repro_torch.models import mamba2
+    mamba_launches = devft_phase(
+        "mamba2-2.7b",
+        lambda c: (c.n_layers, c.d_model, mamba2.d_inner(c),
+                   mamba2.n_heads(c), c.mamba.head_dim, c.mamba.d_state,
+                   c.mamba.n_groups, c.mamba.chunk, c.vocab),
+        (64, 2560, 5120, 80, 64, 128, 1, 256, 50280), [8, 16, 32, 64],
+        {"lora_matmul_fused": 2, "ssd_scan_bshp": 1}, 600)
     torch.cuda.empty_cache()
 
     kernels = {"kernels": [
@@ -1141,8 +1315,13 @@ def main() -> int:
         dict(name="moe_expert_ffn", route="cuda",
              source="src/repro_torch/kernels/csrc/moe_ffn.cu",
              replaces="src/repro/kernels/moe_ffn.py:92",
-             launches=devft_launches["moe_expert_ffn_ecd"],
+             launches=granite_launches["moe_expert_ffn_ecd"],
              **moe_rows["path E32 C1280 d1024 ff512 bf16"]),
+        dict(name="ssd_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan.py:105",
+             launches=mamba_launches["ssd_scan_bshp"],
+             **ssd_rows["path B4 S1024 H80 P64 N128 G1 c256 bf16"]),
     ]}
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

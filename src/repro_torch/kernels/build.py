@@ -24,7 +24,8 @@ REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
 
 #: every kernel source of the package, by name (csrc/<name>.cu)
-SOURCES = ("flash_decode", "lora_matmul", "flash_attention", "moe_ffn")
+SOURCES = ("flash_decode", "lora_matmul", "flash_attention", "moe_ffn",
+           "ssd_scan")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

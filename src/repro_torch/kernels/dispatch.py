@@ -150,6 +150,7 @@ def _ensure_builtin_kernels() -> None:
     from repro_torch.kernels.flash_decode import flash_decode_bhrd
     from repro_torch.kernels.lora_matmul import lora_matmul_fused
     from repro_torch.kernels.moe_ffn import moe_expert_ffn_ecd
+    from repro_torch.kernels.ssd_scan import ssd_scan_bshp
 
     # whole-sequence causal / windowed attention (training and prefill)
     register_kernel("flash_attention", "pallas", flash_attention_bshd)
@@ -165,6 +166,12 @@ def _ensure_builtin_kernels() -> None:
     register_kernel("moe_expert_ffn", "reference", ref.moe_expert_ffn_ref)
     declare_kernel_contract("moe_expert_ffn", family="moe_ffn",
                             out="like:buf")
+    # Mamba-2 chunked SSD forward; the reference is the chunked plain
+    # version, not the O(S) sequential oracle: it is what the model's
+    # plain branch runs and what the kernel's backward differentiates
+    register_kernel("ssd_scan", "pallas", ssd_scan_bshp)
+    register_kernel("ssd_scan", "reference", ref.ssd_scan_bshp_chunked_ref)
+    declare_kernel_contract("ssd_scan", family="ssd", out="like:x")
 
     # single-token ragged-cache decode attention (the serving step's
     # kernel); out="q^v": absorbed-MLA decode attends latents whose v

@@ -5,8 +5,9 @@ of its tensors: a CPU tensor runs the plain PyTorch version
 (``repro_torch.kernels.ref``), a CUDA tensor launches the Hopper kernel
 or raises — there is no fallback to the plain version on the card.
 
-``flash_attention``, ``lora_matmul`` and ``moe_expert_ffn`` sit on the
-training path, so each is a ``torch.autograd.Function`` (the JAX
+``flash_attention``, ``lora_matmul``, ``moe_expert_ffn`` and
+``ssd_scan`` sit on the training path, so each is a
+``torch.autograd.Function`` (the JAX
 package's ``custom_vjp``): the forward runs the kernel, the backward is
 the gradient of the plain version on the saved inputs. The JAX package
 has no backward kernel for any of them, so none has one here.
@@ -134,3 +135,34 @@ def moe_expert_ffn(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     """buf (E, C, d); wg, wu (E, d, ff); wd (E, ff, d), one dtype.
     Returns (E, C, d) in ``buf.dtype``."""
     return _MoeExpertFfn.apply(buf, wg, wu, wd, backend)
+
+
+class _SsdScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, d, chunk, backend):
+        ctx.save_for_backward(x, dt, a, b, c, d)
+        ctx.chunk = chunk
+        return dispatch.get_kernel("ssd_scan", backend, x.device)(
+            x, dt, a, b, c, d, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        """Autograd through ``ssd_scan_bshp_chunked_ref`` at the same
+        chunk on the saved inputs (the JAX package's ``_ssd_bwd``); its
+        intermediates live only inside this call."""
+        need = ctx.needs_input_grad[:6]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n)
+                      for t, n in zip(ctx.saved_tensors, need)]
+            out = ref.ssd_scan_bshp_chunked_ref(*leaves, chunk=ctx.chunk)
+            grads = iter(torch.autograd.grad(
+                out, [t for t, n in zip(leaves, need) if n], grad_out))
+        return (*(next(grads) if n else None for n in need), None, None)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, d: torch.Tensor, *,
+             chunk: int = 128, backend: str = "auto") -> torch.Tensor:
+    """Model layout: x (B,S,H,P); dt (B,S,H) f32; b/c (B,S,G,N); a/d (H,)
+    f32. Returns (B,S,H,P) in ``x.dtype``."""
+    return _SsdScan.apply(x, dt, a, b, c, d, int(chunk), backend)

@@ -92,3 +92,56 @@ def moe_expert_ffn_ref(buf, wg, wu, wd):
     h = torch.nn.functional.silu(torch.einsum("ecd,edf->ecf", buf, wg)) \
         * torch.einsum("ecd,edf->ecf", buf, wu)
     return torch.einsum("ecf,efd->ecd", h, wd)
+
+
+def ssd_scan_ref(x, dt, a, b, c, d):
+    """Sequential (non-chunked) SSD recurrence, the ground truth.
+
+    x: (B, H, S, P); dt: (B, H, S) f32; a, d: (H,) f32; b, c: (B, H, S, N).
+    h_t = exp(dt_t·a)·h_{t-1} + dt_t·x_t·b_tᵀ ;  y_t = h_t·c_t + d·x_t,
+    the state in f32; returns (B, H, S, P) in ``x.dtype``."""
+    bsz, h, s, p = x.shape
+    n = b.shape[-1]
+    state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        xt, dtt = x[:, :, t].float(), dt[:, :, t]
+        bt, ct = b[:, :, t].float(), c[:, :, t].float()
+        decay = torch.exp(dtt * a[None, :])                 # (B, H)
+        state = state * decay[..., None, None] + torch.einsum(
+            "bhp,bhn,bh->bhpn", xt, bt, dtt)
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, ct))
+    y = torch.stack(ys, dim=2)
+    y = y + x.float() * d[None, :, None, None]
+    return y.to(x.dtype)
+
+
+def ssd_scan_bshp_ref(x, dt, a, b, c, d):
+    """Model layout: x (B, S, H, P); dt (B, S, H); b, c (B, S, G, N);
+    a, d (H,). The sequential oracle; b and c are repeated to H heads."""
+    rep = x.shape[2] // b.shape[2]
+    bt = torch.repeat_interleave(b.transpose(1, 2), rep, dim=1)
+    ct = torch.repeat_interleave(c.transpose(1, 2), rep, dim=1)
+    y = ssd_scan_ref(x.transpose(1, 2), dt.transpose(1, 2), a, bt, ct, d)
+    return y.transpose(1, 2)
+
+
+def ssd_scan_bshp_chunked_ref(x, dt, a, b, c, d, *, chunk: int = 128):
+    """Model layout like ``ssd_scan_bshp_ref``, through the chunked SSD
+    formulation (``repro_torch.models.mamba2.ssd_chunked``) at chunk
+    ``min(chunk, S)``, the sequence zero-padded to a whole chunk. The
+    plain version of the ``ssd_scan`` kernel and the function its
+    backward differentiates (the O(S) sequential scan would make the
+    backward far slower)."""
+    # lazy: kernels -> models only at call time (no import cycle)
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    s = x.shape[1]
+    ck = min(chunk, s)
+    pad = (-s) % ck
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        b = torch.nn.functional.pad(b, (0, 0, 0, 0, 0, pad))
+        c = torch.nn.functional.pad(c, (0, 0, 0, 0, 0, pad))
+    return ssd_chunked(x, dt, a, b, c, d, ck)[:, :s]

@@ -1,6 +1,8 @@
 """The whole model: GQA attention blocks with a SwiGLU MLP (``gqa_mlp``:
 qwen2-7b, llama2-7b-proxy, phi4-mini, qwen3, minicpm) or a top-k MoE
-(``gqa_moe``: granite-moe), for training; the dense blocks also serve.
+(``gqa_moe``: granite-moe), and attention-free Mamba-2 blocks
+(``mamba_only``: mamba2-2.7b), for training; the dense blocks also
+serve.
 
 Parameters keep the JAX package's *stacked* layout: every leaf of a
 layer stack carries a leading ``(L, ...)`` layer axis, so DevFT's
@@ -12,9 +14,9 @@ buffer donation. ``decode_step`` writes the KV cache in place.
 (non-reentrant); the JAX package's named ``jax.checkpoint_policies``
 have no counterpart here and raise.
 
-Other block kinds (Mamba-2, MLA, hybrid, enc-dec, multimodal
-frontends), and decoding with MoE blocks, raise ``NotImplementedError``;
-ROADMAP.md lists them.
+Other block kinds (MLA, the hybrid Mamba/attention order, enc-dec,
+multimodal frontends), and decoding with MoE or Mamba-2 blocks, raise
+``NotImplementedError``; ROADMAP.md lists them.
 
 Public API:
     init_params(cfg, gen, dtype)                  -> params
@@ -35,11 +37,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.interop import tree_leaves, tree_map
 from repro_torch.models import layers as Lyr
+from repro_torch.models import mamba2 as Mb
 from repro_torch.models import moe as Moe
 
 #: block kinds this package trains
-PORTED_KINDS = ("gqa_mlp", "gqa_moe")
-#: block kinds ``decode_step`` runs (MoE decoding is a later slice)
+PORTED_KINDS = ("gqa_mlp", "gqa_moe", "mamba_only")
+#: block kinds ``decode_step`` runs (MoE and Mamba-2 decoding are later
+#: slices)
 DECODE_KINDS = ("gqa_mlp",)
 
 
@@ -67,7 +71,7 @@ def _check_ported(cfg, kinds=PORTED_KINDS) -> None:
             f"{cfg.arch_id} ({cfg.family}: blocks {have}, frontend="
             f"{cfg.frontend}, mrope={cfg.mrope}) is not ported yet for this "
             f"path; it runs {list(kinds)} blocks (ROADMAP.md, 'Modules to "
-            f"port': MoE decode, Mamba-2/MLA, hybrid and frontend items)")
+            f"port': MoE and Mamba-2 decode, MLA, hybrid and frontend items)")
 
 
 def stack_sizes(blocks: dict) -> Dict[str, int]:
@@ -82,6 +86,9 @@ def _init_block(gen: torch.Generator, cfg, kind: str, dtype,
     d = cfg.d_model
     dev = gen.device
     assert kind in PORTED_KINDS, kind
+    if kind == "mamba_only":
+        return {"ln1": torch.ones((n, d), dtype=dtype, device=dev),
+                "mixer": Mb.init_mamba(gen, cfg, dtype, lead=(n,))}
     return {
         "ln1": torch.ones((n, d), dtype=dtype, device=dev),
         "mixer": Lyr.init_gqa(gen, cfg, dtype, lead=(n,)),
@@ -92,10 +99,15 @@ def _init_block(gen: torch.Generator, cfg, kind: str, dtype,
 
 
 def _block_lora_targets(cfg, kind: str):
-    """Which mixer projections get LoRA (paper: W_q / W_v), with their
-    (d_in, d_out)."""
+    """Which mixer projections get LoRA (paper: W_q / W_v; Mamba-2: the
+    in and out projections), with their (d_in, d_out)."""
     assert kind in PORTED_KINDS, kind
     d = cfg.d_model
+    if kind == "mamba_only":
+        return {"in_proj": (d, 2 * Mb.d_inner(cfg)
+                            + 2 * cfg.mamba.n_groups * cfg.mamba.d_state
+                            + Mb.n_heads(cfg)),
+                "out_proj": (Mb.d_inner(cfg), d)}
     return {"wq": (d, cfg.n_heads * cfg.hd),
             "wv": (d, cfg.n_kv_heads * cfg.hd)}
 
@@ -161,6 +173,9 @@ def block_forward(p, cfg, kind, x, cos, sin, lora=None, *, window=None,
     """Pre-norm residual block over a whole sequence. Returns (y, aux)."""
     assert kind in PORTED_KINDS, kind
     h = Lyr.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if kind == "mamba_only":
+        return x + Mb.mamba_forward(p["mixer"], cfg, h, lora=lora), \
+            torch.zeros((), dtype=torch.float32, device=x.device)
     x = x + Lyr.gqa_attention(p["mixer"], cfg, h, cos, sin, lora=lora,
                               window=window, causal=causal)
     h2 = Lyr.rms_norm(x, p["ln2"], cfg.norm_eps)
@@ -170,10 +185,13 @@ def block_forward(p, cfg, kind, x, cos, sin, lora=None, *, window=None,
 
 def _embed_inputs(cfg, params, batch):
     """Returns (x (B,S,d), cos, sin) for a text batch (the port runs no
-    multimodal frontend, so no prefix tokens precede the text)."""
+    multimodal frontend, so no prefix tokens precede the text); a pure
+    SSM needs no rotary tables (cos = sin = None)."""
     tokens = _on_device(batch["tokens"], params["embed"].device)
     b, s = tokens.shape
     x = params["embed"][tokens]
+    if cfg.attn_kind == "none":
+        return x, None, None
     pos = torch.arange(s, dtype=torch.int32,
                        device=tokens.device)[None, :].expand(b, s)
     cos, sin = Lyr.rope_cos_sin(pos, cfg.hd, cfg.rope_theta)

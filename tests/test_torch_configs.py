@@ -140,6 +140,8 @@ PORTED_MODULES = {
     "repro_torch.kernels.flash_attention", "repro_torch.kernels.ops",
     "repro_torch.federated.client", "repro_torch.federated.aggregation",
     "repro_torch.launch.steps",
+    # DevFT on Mamba-2
+    "repro_torch.kernels.ssd_scan", "repro_torch.models.mamba2",
 }
 
 
@@ -151,6 +153,20 @@ def test_port_imports_no_jax_and_no_repro():
                          timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 44, out.stdout       # every subpackage was walked
+    assert n_modules >= 46, out.stdout       # every subpackage was walked
     walked = set(out.stdout.split()[-1].split(","))
     assert PORTED_MODULES <= walked, PORTED_MODULES - walked
+
+
+def test_ported_kinds_reach_mamba2_for_training_only():
+    """mamba2-2.7b passes the training path's port check; decoding it
+    still raises, and the hybrid and MLA archs still raise for both."""
+    from repro_torch.models import transformer as T
+    cfg = pcfgs.get_config("mamba2-2.7b")
+    assert T.stack_kinds(cfg) == {"layers": "mamba_only"}
+    T._check_ported(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T._check_ported(cfg, T.DECODE_KINDS)
+    for arch in ("jamba-v0.1-52b", "deepseek-v3-671b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            T._check_ported(pcfgs.get_config(arch))

@@ -36,6 +36,7 @@ import sys
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -61,15 +62,22 @@ FLOAT_FIELDS = ("eval_loss", "eval_acc", "flops", "sim_time_s")
 def run_both(spec_kw, preset="bench-tiny"):
     """(port RunResult, JAX RunResult) of one spec, from the JAX
     package's base params and initial LoRA."""
-    jspec = jax_get_preset(preset).replace(**spec_kw)
-    pspec = get_preset(preset).replace(**spec_kw)
+    return run_pair(jax_get_preset(preset).replace(**spec_kw),
+                    get_preset(preset).replace(**spec_kw))
+
+
+def run_pair(jspec, pspec):
+    """(port RunResult, JAX RunResult) of one spec given to each package,
+    from the JAX package's base params and initial LoRA."""
     assert pspec.spec_hash() == jspec.spec_hash()
     want = jax_run_experiment(jspec)
     if jspec.pretrain_steps:
         params, _ = jax_pretrained_base(jspec)
     else:
+        # the JAX round engine's own init: f32 params (FederatedRunner's
+        # dtype), whatever the config's dtype
         params = JT.init_params(jspec.build_cfg(),
-                                jax.random.PRNGKey(jspec.seed))
+                                jax.random.PRNGKey(jspec.seed), jnp.float32)
     lora = JT.init_lora(jspec.build_cfg(),
                         jax.random.fold_in(jax.random.PRNGKey(jspec.seed), 1),
                         rank=jspec.lora_rank)
