@@ -16,9 +16,12 @@ parity at reduced sizes. Phases, in order:
    ``moe_expert_ffn`` and ``ssd_scan`` vs their plain versions (max abs
    error and error scaled to each row's output size; exact zeros for
    empty MoE rows; ``ssd_scan`` also vs the f32 sequential oracle, with
-   ragged S, G > 1, underflowing decays and empty dt rows) and times of
-   kernel, plain version and a PyTorch yardstick the port never calls,
-   beside the bound;
+   ragged S, G > 1, underflowing decays and empty dt rows;
+   ``lora_matmul`` at ranks 32, 65 and 128 and ragged shapes, also vs
+   an f64 oracle at the llama shape, with its variant, padding, pre-pass
+   time, the other tile width's time and host time per call) and times
+   of kernel, plain version and a PyTorch yardstick the port never
+   calls, beside the bound;
 3. serving: qwen2-7b unreduced (28 layers, d 3584, 28/4 heads, vocab
    152064), bf16, 4 resident rank-8 adapters, 8 slots, 16 requests;
    ``flash_decode`` must have launched once per layer per engine step,
@@ -32,7 +35,8 @@ parity at reduced sizes. Phases, in order:
    steps of 4 x 1024 tokens through ``make_federated_round_step``
    (fedavg), timed by their median; in each round ``lora_matmul`` must
    have launched 2 x 32 and ``flash_attention`` 32 times per forward,
-   and neither in a backward; device busy share over one profiled step;
+   and neither in a backward, every ``lora_matmul`` call on the wgmma
+   kernel unpadded; device busy share over one profiled step;
 7. train parity: full-width loss through the kernels vs the plain path
    on the card; reduced llama2-7b-proxy, qwen2-7b and mamba2-2.7b in
    f32, loss and
@@ -44,7 +48,8 @@ parity at reduced sizes. Phases, in order:
    resolution and ``run_experiment``: DevFT, 4 rounds in 4 stages
    (capacities 3, 6, 12, 24), 2 of 20 clients x 2 local steps of 4 x
    1024 tokens; exact launch counts (``moe_expert_ffn`` and
-   ``flash_attention`` 225, ``lora_matmul`` 450, ``flash_decode`` 0),
+   ``flash_attention`` 225, ``lora_matmul`` 450, all on the wgmma
+   kernel unpadded, ``flash_decode`` 0),
    per-stage submodel build time, ms per local step, tokens/s and peak
    memory, one profiled local step at capacity 24, round 0's eval loss
    through the kernels vs the plain versions, and the card's DGLG group
@@ -137,7 +142,7 @@ def device_phase(build):
                 print(f"[device] ptxas {source}: {line.split(chr(39))[1]}")
             elif "registers" in line or "spill" in line:
                 print(f"[device] ptxas {source}:   {line.strip()}")
-    return name, smi
+    return name, smi, seconds
 
 
 def kernel_phase(flash_decode_bhrd, flash_decode_ref, seed: int = 0):
@@ -248,39 +253,56 @@ def _bound(bytes_moved, flops, peak_flops):
 #: does (lora_matmul.py:89), and the plain version keeps it f32; that and
 #: the output's own rounding stay within two bf16 ulps of the row's size.
 LORA_ROW_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+#: lora_matmul at the llama path shape against an f64 oracle of the same
+#: function (x@A rounded to bf16, everything else exact), so the error is
+#: the kernel's own: the output's rounding (at most 2**-8 of a row's
+#: largest |output|) and the x@A elements whose f32 and f64 sums round to
+#: neighbouring bf16 values (up to 5.1e-3 in all; NVIDIA H100 80GB HBM3).
+LORA_ORACLE_TOL = 2.0 ** -7
+#: the lora_matmul case of the ``kernels`` line and of the f64 oracle
+LORA_PATH = "path M4096 K4096 N4096 r32 bf16"
 
 
 def lora_phase(lora_matmul_fused, lora_matmul_ref, seed: int = 0):
     """lora_matmul vs its plain version; the path shape is one W_q/W_v
-    projection of the training step (4 x 1024 tokens, d 4096, r 32)."""
+    projection of the training step (4 x 1024 tokens, d 4096, r 32). Per
+    case: the plan's variant and padding, the pre-pass's time beside the
+    whole call's, and the host time of one call (the TMA maps are
+    encoded on the host)."""
+    import dataclasses
+
+    from repro_torch.kernels.lora_matmul import (pad_operands, plan, prepass,
+                                                 run_plan)
+
     dev = "cuda"
     rng = np.random.default_rng(np.random.SeedSequence((seed, 4)))
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    bf16 = torch.bfloat16
     cases = [  # name, x shape, N, r, dtype
-        ("path M4096 K4096 N4096 r32 bf16", (4, 1024, 4096), 4096, 32,
-         torch.bfloat16),
+        (LORA_PATH, (4, 1024, 4096), 4096, 32, bf16),
         ("path M4096 K4096 N4096 r32 f32", (4, 1024, 4096), 4096, 32,
          torch.float32),
-        ("ragged M1000 K1000 N1000 r2 bf16", (1000, 1000), 1000, 2,
-         torch.bfloat16),
-        ("ragged M333 K1001 N777 r8 bf16", (333, 1001), 777, 8,
-         torch.bfloat16),
-        ("ragged M1000 K1000 N1000 r32 bf16", (1000, 1000), 1000, 32,
-         torch.bfloat16),
+        # ranks above 64, which the kernel before the pre-pass refused
+        ("path M4096 K4096 N4096 r128 bf16", (4, 1024, 4096), 4096, 128,
+         bf16),
+        ("path M4096 K4096 N4096 r65 bf16", (4, 1024, 4096), 4096, 65, bf16),
+        ("ragged M1000 K1000 N1000 r2 bf16", (1000, 1000), 1000, 2, bf16),
+        ("ragged M333 K1001 N777 r8 bf16", (333, 1001), 777, 8, bf16),
+        ("ragged M333 K1001 N777 r96 bf16", (333, 1001), 777, 96, bf16),
+        ("ragged M1000 K1000 N1000 r32 bf16", (1000, 1000), 1000, 32, bf16),
         ("ragged M333 K1001 N777 r8 f32", (333, 1001), 777, 8,
          torch.float32),
-        ("lead B2 S77 K512 N640 r16 bf16", (2, 77, 512), 640, 16,
-         torch.bfloat16),
+        ("lead B2 S77 K512 N640 r16 bf16", (2, 77, 512), 640, 16, bf16),
         # granite-moe-1b-a400m's W_q and W_v on the DevFT path
         ("granite M4096 K1024 N1024 r32 bf16", (4, 1024, 1024), 1024, 32,
-         torch.bfloat16),
+         bf16),
         ("granite M4096 K1024 N512 r32 bf16", (4, 1024, 1024), 512, 32,
-         torch.bfloat16),
+         bf16),
         # mamba2-2.7b's in_proj and out_proj on the DevFT path
         ("mamba M4096 K2560 N10576 r32 bf16", (4, 1024, 2560), 10576, 32,
-         torch.bfloat16),
+         bf16),
         ("mamba M4096 K5120 N2560 r32 bf16", (4, 1024, 5120), 2560, 32,
-         torch.bfloat16),
+         bf16),
     ]
     rows = {}
     for name, xs, n, r, dt in cases:
@@ -303,31 +325,90 @@ def lora_phase(lora_matmul_fused, lora_matmul_ref, seed: int = 0):
         check(row_err <= LORA_ROW_TOL[dt],
               f"lora {name}: row-scaled error {row_err} > {LORA_ROW_TOL[dt]}")
         m = x.numel() // k
+        x2 = x.reshape(m, k)
+        p = plan(m, k, n, r, dt)
+        check(p.variant == ("wgmma" if dt == bf16 else "fma_f32"),
+              f"lora {name}: variant {p.variant}")
+        on_path = name == LORA_PATH or name.startswith(("granite", "mamba"))
+        check(not (on_path and p.padded),
+              f"lora {name}: a training path's shape padded ({p})")
+        if name == LORA_PATH:
+            xa = (x2.double() @ a.double()).to(dt).double()
+            oracle = x2.double() @ w.double() + 2.0 * (xa @ b.double())
+            _, oracle_err = _row_scaled(out.reshape(m, n), oracle)
+            del xa, oracle
+            check(oracle_err <= LORA_ORACLE_TOL,
+                  f"lora {name}: row-scaled error vs the f64 oracle "
+                  f"{oracle_err} > {LORA_ORACLE_TOL}")
+            print(f"[kernel] lora_matmul {name}: row-scaled error vs the "
+                  f"f64 oracle (x@A rounded to bf16) {oracle_err:.3g} (tol "
+                  f"{LORA_ORACLE_TOL:.3g})")
         esz = x.element_size()
         bytes_moved = esz * (m * k + k * n + k * r + r * n + m * n)
         flops = 2 * m * n * k + 2 * m * r * (k + n)
         bound_ms, bound_by = _bound(
             bytes_moved, flops,
-            BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
+            BF16_FLOPS if dt == bf16 else F32_FLOPS)
         ms = time_cuda(lambda: lora_matmul_fused(x, w, a, b, scaling=2.0),
                        flush)
+        xp, _, ap, _ = pad_operands(p, x2, w, a, b)
+        prepass_ms = time_cuda(lambda: prepass(p, xp, ap), flush)
+        if name == LORA_PATH:
+            # yardstick of the pre-pass alone: cuBLAS's x @ a, the same
+            # reads of x (and no rounding)
+            xa_ms = time_cuda(lambda: torch.matmul(x2, a), flush)
+            print(f"[kernel] lora_matmul {name}: pre-pass "
+                  f"{prepass_ms * 1e3:.1f} us, x @ a alone (matmul) "
+                  f"{xa_ms * 1e3:.1f} us, reading x ({m * k * esz / 1e6:.1f}"
+                  f" MB) at {m * k * esz / prepass_ms / 1e9:.2f} TB/s")
+        other = ""
+        if on_path:
+            # the tile width the plan did not pick, on the same inputs
+            bn = 384 - p.block_n
+            alt = dataclasses.replace(
+                p, block_n=bn, grid=(-(-m // 128) * -(-p.n_pad // bn), 1))
+            alt_ms = time_cuda(lambda: run_plan(alt, x2, w, a, b, 2.0),
+                               flush)
+            other = f", block_n {bn} {alt_ms * 1e3:.1f} us"
         plain_ms = time_cuda(
             lambda: lora_matmul_ref(x, w, a, b, scaling=2.0), flush)
         # yardstick only: the frozen product x @ w alone (no single
         # PyTorch call computes the fused function)
         library_ms = time_cuda(lambda: torch.matmul(x, w), flush)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CUDA_ITERS):
+            lora_matmul_fused(x, w, a, b, scaling=2.0)
+        host_us = (time.perf_counter() - t0) / CUDA_ITERS * 1e6
+        torch.cuda.synchronize()
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=library_ms)
-        print(f"[kernel] lora_matmul {name}: err={err:.3g} row-scaled "
-              f"{row_err:.3g} (tol {LORA_ROW_TOL[dt]:.3g}) | kernel "
-              f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, x@w alone "
-              f"(matmul) {library_ms * 1e3:.1f} us, bound "
+                          library_ms=library_ms, variant=p.variant,
+                          prepass_ms=prepass_ms, padded=p.padded)
+        print(f"[kernel] lora_matmul {name}: {p.variant}, block_n "
+              f"{p.block_n}, {'padded' if p.padded else 'not padded'}; "
+              f"err={err:.3g} row-scaled {row_err:.3g} (tol "
+              f"{LORA_ROW_TOL[dt]:.3g}) | call {ms * 1e3:.1f} us (pre-pass "
+              f"{prepass_ms * 1e3:.1f} us{other}), plain "
+              f"{plain_ms * 1e3:.1f} us, "
+              f"x@w alone (matmul) {library_ms * 1e3:.1f} us, bound "
               f"{bound_ms * 1e3:.2f} us ({bound_by}; {flops / 1e9:.2f} "
               f"GFLOP, {bytes_moved / 1e6:.2f} MB; {100 * bound_ms / ms:.1f}"
-              f"% of bound, {flops / ms / 1e9:.1f} TFLOP/s)")
+              f"% of bound, {flops / ms / 1e9:.1f} TFLOP/s); host "
+              f"{host_us:.1f} us per call")
     del flush
     return rows
+
+
+def _check_lora_variants(lora_matmul_fused, tag):
+    """Every lora_matmul call since the last ``reset_counts`` ran the
+    wgmma kernel on unpadded operands."""
+    fn = lora_matmul_fused
+    check(dict(fn.variants) == {"wgmma": fn.launches} and fn.padded == 0,
+          f"{tag}: lora_matmul variants {dict(fn.variants)}, padded "
+          f"{fn.padded} of {fn.launches} calls")
+    print(f"[{tag}] lora_matmul: all {fn.launches} calls on the wgmma "
+          f"kernel, none padded")
 
 
 #: flash_attention limits on the row-scaled error. f32: 1e-4, as the
@@ -576,6 +657,13 @@ def _profile(tag, what, fn, n=1):
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"[{tag}]   {t / 1e3 / n:.3f} ms, {c // n} calls per call: "
               f"{name[:90]}")
+    lora = [(t, c) for name, (t, c) in by_name.items()
+            if "xa_bf16_kernel" in name or "lora_wgmma_kernel" in name]
+    if lora:
+        t = sum(t for t, _ in lora)
+        print(f"[{tag}]   lora_matmul forward (pre-pass and main kernel): "
+              f"{t / 1e3 / n:.3f} ms in {sum(c for _, c in lora) // n} "
+              f"launches per call, {100 * t / busy_us:.1f}% of device busy")
 
 
 def parity_phase(seed: int = 0):
@@ -641,7 +729,8 @@ def train_phase(seed: int = 0):
     from repro_torch.federated.client import make_local_train
     from repro_torch.kernels.flash_attention import flash_attention_bshd
     from repro_torch.kernels.flash_decode import flash_decode_bhrd
-    from repro_torch.kernels.lora_matmul import lora_matmul_fused
+    from repro_torch.kernels.lora_matmul import (lora_matmul_fused,
+                                                 reset_counts)
     from repro_torch.kernels.moe_ffn import moe_expert_ffn_ecd
     from repro_torch.kernels.ssd_scan import ssd_scan_bshp
     from repro_torch.launch.steps import make_federated_round_step
@@ -688,6 +777,7 @@ def train_phase(seed: int = 0):
     for _ in range(TRAIN_ROUNDS):
         for fn in kernels:
             fn.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         new_lora, loss = round_step(params, lora, batches, lr)
         loss = float(loss)                               # waits
@@ -696,6 +786,7 @@ def train_phase(seed: int = 0):
         launches = {fn.__name__: fn.launches for fn in kernels}
         check(launches == want, f"launches {launches}, want {want} (the "
               f"backward launches no kernel)")
+        _check_lora_variants(lora_matmul_fused, "train")
     peak = torch.cuda.max_memory_allocated()
     wall = float(np.median(walls))
 
@@ -1056,7 +1147,8 @@ def devft_phase(arch, config_of, want_config, want_caps, per_layer,
     from repro_torch.interop import tree_map
     from repro_torch.kernels.flash_attention import flash_attention_bshd
     from repro_torch.kernels.flash_decode import flash_decode_bhrd
-    from repro_torch.kernels.lora_matmul import lora_matmul_fused
+    from repro_torch.kernels.lora_matmul import (lora_matmul_fused,
+                                                 reset_counts)
     from repro_torch.kernels.moe_ffn import moe_expert_ffn_ecd
     from repro_torch.kernels.ssd_scan import ssd_scan_bshp
     from repro_torch.launch import train
@@ -1122,6 +1214,7 @@ def devft_phase(arch, config_of, want_config, want_caps, per_layer,
     try:
         for fn in kernels:
             fn.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         result = run_experiment(spec, device="cuda", dtype=torch.bfloat16,
                                 round_progress=lambda log: print(
@@ -1153,6 +1246,7 @@ def devft_phase(arch, config_of, want_config, want_caps, per_layer,
     want = {fn.__name__: per_layer.get(fn.__name__, 0) * forwards_layers
             for fn in kernels}
     check(launches == want, f"launches {launches}, want {want}")
+    _check_lora_variants(lora_matmul_fused, "devft")
     check(forwards_layers == want_forward_layers,
           f"{forwards_layers} forward layers")
     for log in result.logs:
@@ -1260,7 +1354,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     setup_numerics()
-    name, smi = device_phase(build)
+    name, smi, build_s = device_phase(build)
     rows = kernel_phase(flash_decode_bhrd, ref.flash_decode_ref)
     lora_rows = lora_phase(lora_matmul_fused, ref.lora_matmul_ref)
     flash_rows = attention_phase(flash_attention_bshd,
@@ -1306,7 +1400,7 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/lora_matmul.cu",
              replaces="src/repro/kernels/lora_matmul.py:94",
              launches=train_launches["lora_matmul_fused"],
-             **lora_rows["path M4096 K4096 N4096 r32 bf16"]),
+             build_s=build_s["lora_matmul"], **lora_rows[LORA_PATH]),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:126",

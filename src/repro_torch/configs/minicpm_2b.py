@@ -1,7 +1,6 @@
 """MiniCPM-2B — llama-like dense (MHA), WSD LR schedule, tied embeddings.
 
-WSD (warmup-stable-decay) lives in the JAX package (repro.optim.schedule.wsd)
-and is not ported yet.
+WSD (warmup-stable-decay) is ported: ``repro_torch.optim.schedule.wsd``.
 [arXiv:2404.06395]
 """
 from repro_torch.configs.base import ModelConfig

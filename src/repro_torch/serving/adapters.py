@@ -15,8 +15,9 @@ adapters in use by active requests are pinned, so an eviction never
 swaps an adapter out from under a running decode.
 
 (The JAX package's ``personalized_adapters`` / ``registry_from_run``
-export a finished training run; they need the training runner and come
-with the training slice.)
+export a finished training run into a registry; that train-to-serve
+hand-off is not ported yet and is queued in ROADMAP.md, section 1,
+item 4.)
 """
 from __future__ import annotations
 

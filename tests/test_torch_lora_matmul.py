@@ -5,7 +5,14 @@ On the CPU the port's ``ops.lora_matmul`` runs its plain version
 is held against the JAX package's Pallas kernel (interpret mode) and its
 reference on the same numpy inputs. Cases mirror ``tests/test_kernels.py``
 's lora sweep: square, ragged M/N/K (the padding path), r in {2, 4, 8,
-32}, f32 and bf16, and leading dims.
+32} and, as the JAX kernel takes any r whole, 65 and 128; f32 and bf16,
+and leading dims.
+
+The Hopper kernel's order of work (x@A once, rounded to bf16; the rank
+product scaled by s as the f32 accumulator's start; then + x@W) is
+written out in plain PyTorch here and held to the JAX Pallas kernel, and
+the wrapper's host-side ``plan`` (variant, r_pad, padding, grids) is held
+at every path shape.
 
 Tolerances: f32 1e-5 (rtol = atol; summation order only) against both.
 bf16: 1e-2 against the JAX reference (the same all-f32 math, one bf16
@@ -18,6 +25,8 @@ plain version runs (without recomputing x@W): its gradients equal
 autograd through the plain version exactly and ``jax.vjp`` of the JAX op
 at 1e-5; the frozen ``w`` gets none, a ``w`` that asks gets one.
 """
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +40,9 @@ from repro.models import layers as JL
 from repro_torch.kernels import dispatch, ops, ref
 from repro_torch.kernels.lora_matmul import lora_matmul_fused
 from repro_torch.models import layers as PL
+
+# the module (``repro_torch.kernels.lora_matmul`` names the op function)
+lm = sys.modules["repro_torch.kernels.lora_matmul"]
 
 torch.set_num_threads(1)
 
@@ -62,6 +74,8 @@ def _close(got, want, tol):
     (100, 96, 72, 2),
     (37, 80, 56, 32),
     (128, 256, 128, 32),
+    (70, 96, 80, 65),      # ranks above 64: any r, as the JAX kernel
+    (64, 128, 96, 128),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_lora_matmul_matches_jax(m, k, n, r, dtype):
@@ -101,6 +115,89 @@ def test_kernel_branch_of_proj_matches_jax_pallas(monkeypatch):
     want = JL._proj(jx, jw, jnp.asarray(bias), {"a": ja, "b": jb},
                     backend="pallas")
     _close(got, want, 1e-5)
+
+
+def _kernel_order(x, w, a, b, scaling):
+    """The Hopper kernel's order of work in plain PyTorch: xa = x @ a in
+    f32, rounded to b's dtype once; the f32 accumulator starts as
+    scaling * (xa @ b); x @ w in f32 accumulates onto it; one rounding to
+    x's dtype."""
+    xa = (x.float() @ a.float()).to(b.dtype).float()
+    acc = scaling * (xa @ b.float())
+    return (acc + x.float() @ w.float()).to(x.dtype)
+
+
+@pytest.mark.parametrize("r", [32, 128])
+def test_kernel_order_of_work_matches_jax_pallas(r):
+    """At the bf16 limit the file holds the kernel branch to (2e-2)."""
+    (jx, jw, ja, jb), (x, w, a, b) = _operands(("order", r), (96, 128), 128,
+                                               80, r, "bfloat16")
+    got = _kernel_order(x, w, a, b, 2.0)
+    want = jops.lora_matmul(jx, jw, ja, jb, scaling=2.0, block_m=32,
+                            block_n=32, block_k=32, interpret=True)
+    _close(got, want, 2e-2)
+    _close(got, ref.lora_matmul_ref(x, w, a, b, scaling=2.0).float(), 2e-2)
+
+
+# ---------------------------------------------------------------------------
+# the host-side plan of a Hopper call
+# ---------------------------------------------------------------------------
+
+#: (M, K, N) of every lora_matmul call on the training paths (r 32):
+#: llama2-7b-proxy's W_q/W_v, granite-moe-1b-a400m's W_q and W_v,
+#: mamba2-2.7b's in_proj and out_proj
+PATH_SHAPES = [(4096, 4096, 4096), (4096, 1024, 1024), (4096, 1024, 512),
+               (4096, 2560, 10576), (4096, 5120, 2560)]
+
+
+@pytest.mark.parametrize("m,k,n", PATH_SHAPES)
+def test_plan_path_shapes_take_the_wgmma_kernel_unpadded(m, k, n):
+    p = lm.plan(m, k, n, 32, torch.bfloat16)
+    assert p.variant == "wgmma" and not p.padded
+    assert (p.k_pad, p.n_pad, p.r_a, p.r_pad) == (k, n, 32, 64)
+    assert p.block_n in (128, 256)
+    assert p.grid == (-(-m // 128) * -(-n // p.block_n), 1)
+    assert p.prepass_grid == (m // 32, 1)
+
+
+def test_plan_pads_ragged_shapes_to_whole_vectors():
+    p = lm.plan(333, 1001, 777, 96, torch.bfloat16)
+    assert p.padded and (p.k_pad, p.n_pad, p.r_a, p.r_pad) == (1008, 784,
+                                                               96, 128)
+    assert p.prepass_grid == (11, 2)
+    p = lm.plan(333, 1001, 777, 8, torch.float32)
+    assert p.variant == "fma_f32" and not p.padded
+    assert (p.k_pad, p.n_pad, p.r_a) == (1001, 777, 8)
+
+
+@pytest.mark.parametrize("r", [1, 2, 32, 64, 65, 128, 200])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_plan_takes_any_rank(r, dtype):
+    p = lm.plan(4096, 4096, 4096, r, dtype)
+    assert p.r_pad % 64 == 0 and r <= p.r_pad < r + 64
+    assert p.r_a == (-(-r // 8) * 8 if dtype == torch.bfloat16 else r)
+    assert p.padded == (dtype == torch.bfloat16 and r % 8 != 0)
+
+
+@pytest.mark.parametrize("shape", [(0, 4, 4, 2), (4, 4, 4, 0)])
+def test_plan_refuses_empty_operands(shape):
+    with pytest.raises(ValueError, match="empty"):
+        lm.plan(*shape, torch.bfloat16)
+
+
+def test_pad_operands_zero_pads_exactly():
+    """Padding x along K and w/b along N with zeros leaves the product's
+    first N columns unchanged."""
+    _, (x, w, a, b) = _operands(("pad",), (5, 13), 13, 11, 3, "float32")
+    p = lm.plan(5, 13, 11, 3, torch.bfloat16)
+    xp, wp, ap, bp = lm.pad_operands(p, x, w, a, b)
+    assert xp.shape == (5, 16) and ap.shape == (13, 8)
+    assert wp.shape == (13, 16) and bp.shape == (3, 16)
+    got = ref.lora_matmul_ref(xp[:, :13], wp, ap[:, :3], bp, scaling=1.5)
+    assert torch.equal(got[:, :11],
+                       ref.lora_matmul_ref(x, w, a, b, scaling=1.5))
+    assert not xp[:, 13:].any() and not ap[:, 3:].any()
+    assert not wp[:, 11:].any() and not bp[:, 11:].any()
 
 
 # ---------------------------------------------------------------------------
@@ -198,12 +295,23 @@ def test_cuda_resolution_rule(monkeypatch):
         dispatch.get_kernel("lora_matmul", "pallas", "cuda")
 
 
-def test_hopper_wrapper_refuses_cpu_tensors():
-    _, (x, w, a, b) = _operands(("cpu",), (4, 16), 16, 8, 2, "float32")
+@pytest.mark.parametrize("r", [2, 65, 128])
+def test_hopper_wrapper_refuses_cpu_tensors(r):
+    """Any rank passes the wrapper's checks up to the device, which a CPU
+    tensor fails."""
+    _, (x, w, a, b) = _operands(("cpu", r), (4, 16), 16, 8, r, "float32")
     before = lora_matmul_fused.launches
     with pytest.raises(ValueError, match="CUDA"):
         lora_matmul_fused(x, w, a, b)
     assert lora_matmul_fused.launches == before
+
+
+def test_hopper_wrapper_refuses_mixed_dtypes():
+    _, (x, w, a, b) = _operands(("mixed",), (4, 16), 16, 8, 2, "float32")
+    with pytest.raises(ValueError, match="one dtype"):
+        lora_matmul_fused(x, w.to(torch.bfloat16), a, b)
+    with pytest.raises(ValueError, match="one dtype"):
+        lora_matmul_fused(x.half(), w.half(), a.half(), b.half())
 
 
 def test_decode_path_never_takes_the_kernel_branch(monkeypatch):
@@ -230,7 +338,8 @@ def test_decode_path_never_takes_the_kernel_branch(monkeypatch):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("m,k,n,r", [(512, 1024, 768, 32), (333, 200, 136, 8),
-                                     (130, 97, 75, 2)])
+                                     (130, 97, 75, 2), (512, 1024, 768, 128),
+                                     (256, 2560, 10576, 32)])
 def test_hopper_kernel_matches_plain_version(dtype, m, k, n, r):
     """Row-scaled limits (max|out - want| / max|want| per output row):
     f32 1e-5 (summation order only); bf16 2**-6: the kernel rounds x@A
@@ -240,10 +349,13 @@ def test_hopper_kernel_matches_plain_version(dtype, m, k, n, r):
     _, tx = _operands(("gpu", dtype, m, k), (m, k), k, n, r, dtype)
     x, w, a, b = (t.cuda() for t in tx)
     before = lora_matmul_fused.launches
+    variant = "wgmma" if dtype == "bfloat16" else "fma_f32"
+    runs = lora_matmul_fused.variants[variant]
     got = ops.lora_matmul(x, w, a, b, scaling=2.0)
     want = ref.lora_matmul_ref(x, w, a, b, scaling=2.0)
     torch.cuda.synchronize()
     assert lora_matmul_fused.launches == before + 1
+    assert lora_matmul_fused.variants[variant] == runs + 1
     diff = (got.float() - want.float()).abs().amax(-1)
     err = float((diff / want.float().abs().amax(-1)).max())
     assert err <= (1e-5 if dtype == "float32" else 2.0 ** -6)
