@@ -11,7 +11,8 @@ proxy, one FedAvg round) and DevFT's training entry point (granite-moe-
 entry points at full width with random weights, and checks card-vs-CPU
 parity at reduced sizes. Phases, in order:
 
-1. device: card, power limit, versions, kernel build time, ptxas lines;
+1. device: card, power limit, versions, kernel build time, ptxas lines
+   (registers, spills, performance-loss warnings);
 2. kernels: ``flash_decode``, ``lora_matmul``, ``flash_attention``,
    ``moe_expert_ffn`` and ``ssd_scan`` vs their plain versions (max abs
    error and error scaled to each row's output size; exact zeros for
@@ -19,9 +20,15 @@ parity at reduced sizes. Phases, in order:
    ragged S, G > 1, underflowing decays and empty dt rows;
    ``lora_matmul`` at ranks 32, 65 and 128 and ragged shapes, also vs
    an f64 oracle at the llama shape, with its variant, padding, pre-pass
-   time, the other tile width's time and host time per call) and times
-   of kernel, plain version and a PyTorch yardstick the port never
-   calls, beside the bound;
+   time, the other tile width's time and host time per call;
+   ``flash_attention`` with the variant of every case, ragged S, windows
+   inside and across tiles, GQA, strided views of a fused QKV tensor,
+   one-hot V (the output is the probability matrix) and a grid smaller
+   than the card, at the path shapes also the first design's
+   (``mma_sync``) time and host time per call,
+   and at the llama shape the error of the two row-sum denominators)
+   and times of kernel, plain version and a PyTorch yardstick the port
+   never calls, beside the bound;
 3. serving: qwen2-7b unreduced (28 layers, d 3584, 28/4 heads, vocab
    152064), bf16, 4 resident rank-8 adapters, 8 slots, 16 requests;
    ``flash_decode`` must have launched once per layer per engine step,
@@ -36,7 +43,8 @@ parity at reduced sizes. Phases, in order:
    (fedavg), timed by their median; in each round ``lora_matmul`` must
    have launched 2 x 32 and ``flash_attention`` 32 times per forward,
    and neither in a backward, every ``lora_matmul`` call on the wgmma
-   kernel unpadded; device busy share over one profiled step;
+   kernel unpadded and every ``flash_attention`` call on its wgmma
+   kernel; device busy share over one profiled step;
 7. train parity: full-width loss through the kernels vs the plain path
    on the card; reduced llama2-7b-proxy, qwen2-7b and mamba2-2.7b in
    f32, loss and
@@ -48,8 +56,8 @@ parity at reduced sizes. Phases, in order:
    resolution and ``run_experiment``: DevFT, 4 rounds in 4 stages
    (capacities 3, 6, 12, 24), 2 of 20 clients x 2 local steps of 4 x
    1024 tokens; exact launch counts (``moe_expert_ffn`` and
-   ``flash_attention`` 225, ``lora_matmul`` 450, all on the wgmma
-   kernel unpadded, ``flash_decode`` 0),
+   ``flash_attention`` 225, ``lora_matmul`` 450, the last two all on
+   their wgmma kernels, ``lora_matmul`` unpadded, ``flash_decode`` 0),
    per-stage submodel build time, ms per local step, tokens/s and peak
    memory, one profiled local step at capacity 24, round 0's eval loss
    through the kernels vs the plain versions, and the card's DGLG group
@@ -140,7 +148,8 @@ def device_phase(build):
         for line in build.build_log(source).splitlines():
             if "Compiling entry function" in line:
                 print(f"[device] ptxas {source}: {line.split(chr(39))[1]}")
-            elif "registers" in line or "spill" in line:
+            elif ("registers" in line or "spill" in line
+                  or "Performance Loss" in line):
                 print(f"[device] ptxas {source}:   {line.strip()}")
     return name, smi, seconds
 
@@ -432,42 +441,124 @@ def _live_pairs(s, causal, window):
     return int(keep.sum())
 
 
+#: the flash_attention cases of the ``kernels`` line (llama2-7b-proxy's
+#: attention) and of granite-moe-1b-a400m's DevFT path
+FLASH_PATH = "path B4 S1024 H32 D128 causal bf16"
+FLASH_GRANITE = "granite B4 S1024 H16/8 D64 causal bf16"
+
+
+def _denominators(q, k, v, scale):
+    """The causal attention of bf16 q, k, v in f32 with the probabilities
+    rounded to bf16 for the PV product, as the kernels do, divided by the
+    row sum of the rounded probabilities (the first design) and of the
+    unrounded ones (the TPU kernel, flash_attention.py:115-117); both
+    (B, S, H, D) in f32, not rounded."""
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = sc.shape[-1]
+    keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    sc = sc.masked_fill(~keep, float("-inf"))
+    p = torch.exp(sc - sc.amax(-1, True))
+    del sc
+    pb = p.to(torch.bfloat16).float()
+    o = torch.einsum("bhqk,bkhd->bhqd", pb, v.float())
+    old = (o / pb.sum(-1, True)).transpose(1, 2)
+    new = (o / p.sum(-1, True)).transpose(1, 2)
+    return old, new
+
+
+def _check_flash_variant(flash_attention_bshd, tag):
+    """Every flash_attention call since the last ``reset_counts`` ran the
+    wgmma kernel."""
+    fn = flash_attention_bshd
+    check(set(fn.variants) <= {"wgmma"}
+          and fn.variants["wgmma"] == fn.launches,
+          f"{tag}: flash_attention variants {dict(fn.variants)} of "
+          f"{fn.launches} calls")
+    print(f"[{tag}] flash_attention: all {fn.launches} calls on the wgmma "
+          f"kernel")
+
+
 def attention_phase(flash_attention_bshd, attention_bshd_ref,
                     seed: int = 0):
-    """flash_attention vs its plain version; the path shape is one
-    layer of the training step (llama2-7b-proxy, 4 x 1024 tokens)."""
+    """flash_attention vs its plain version; the path shapes are one layer
+    of the training step of llama2-7b-proxy and of granite-moe-1b-a400m
+    (4 x 1024 tokens). Per case: the variant the call ran. At the path
+    shapes also the first design (``mma_sync``) on the same inputs,
+    TFLOP/s, the share of the bound and the host time of one call (four
+    TMA maps are encoded on the host)."""
+    from repro_torch.kernels.flash_attention import (library_smem_bytes,
+                                                     plan, reset_counts,
+                                                     run_plan)
+
     dev = "cuda"
     rng = np.random.default_rng(np.random.SeedSequence((seed, 5)))
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
-    cases = [  # name, B, S, H, Hkv, D, causal, window, dtype
-        ("path B4 S1024 H32 D128 causal bf16", 4, 1024, 32, 32, 128, True,
-         None, torch.bfloat16),
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # name, B, S, H, Hkv, D, causal, window, dtype, inputs
+        (FLASH_PATH, 4, 1024, 32, 32, 128, True, None, bf16, "randn"),
         ("path B4 S1024 H32 D128 causal f32", 4, 1024, 32, 32, 128, True,
-         None, torch.float32),
+         None, f32, "randn"),
         ("gqa 28/4 S1024 causal bf16", 2, 1024, 28, 4, 128, True, None,
-         torch.bfloat16),
+         bf16, "randn"),
         ("window 256 S1024 causal bf16", 2, 1024, 8, 8, 128, True, 256,
-         torch.bfloat16),
-        ("ragged S1000 causal bf16", 2, 1000, 8, 2, 128, True, None,
-         torch.bfloat16),
-        ("full S512 bf16", 2, 512, 8, 8, 128, False, None, torch.bfloat16),
-        ("ragged S300 gqa causal f32", 2, 300, 8, 2, 64, True, None,
-         torch.float32),
-        # granite-moe-1b-a400m on the DevFT path: head dim 64, GQA 2:1
-        ("granite B4 S1024 H16/8 D64 causal bf16", 4, 1024, 16, 8, 64, True,
-         None, torch.bfloat16),
+         bf16, "randn"),
+        ("window 64 S1024 causal bf16", 2, 1024, 8, 8, 128, True, 64, bf16,
+         "randn"),
+        ("ragged S1000 causal bf16", 2, 1000, 8, 2, 128, True, None, bf16,
+         "randn"),
+        ("ragged S100 causal bf16", 2, 100, 8, 2, 128, True, None, bf16,
+         "randn"),
+        ("full S512 bf16", 2, 512, 8, 8, 128, False, None, bf16, "randn"),
+        ("ragged S300 gqa causal f32", 2, 300, 8, 2, 64, True, None, f32,
+         "randn"),
+        (FLASH_GRANITE, 4, 1024, 16, 8, 64, True, None, bf16, "randn"),
+        ("ragged S1000 window 300 D64 bf16", 2, 1000, 4, 2, 64, True, 300,
+         bf16, "randn"),
+        # q, k, v as strided views of one (B, S, 3H, D) tensor
+        ("fused qkv S700 H8 D128 causal bf16", 2, 700, 8, 8, 128, True,
+         None, bf16, "qkv"),
+        ("fused qkv S700 H8 D64 causal bf16", 2, 700, 8, 8, 64, True, None,
+         bf16, "qkv"),
+        # V one-hot per key: the output is the probability matrix, so a
+        # wrong layout of P in the PV product's A registers shows
+        ("identity V S128 D128 causal bf16", 2, 128, 4, 4, 128, True, None,
+         bf16, "eye"),
+        ("identity V S120 D128 full bf16", 2, 120, 4, 4, 128, False, None,
+         bf16, "eye"),
+        ("identity V S64 D64 causal bf16", 2, 64, 4, 4, 64, True, None,
+         bf16, "eye"),
+        # 16 blocks: fewer than the card's SMs
+        ("grid B1 S1024 H2 D128 causal bf16", 1, 1024, 2, 2, 128, True,
+         None, bf16, "randn"),
     ]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
-    for name, b, s, h, hkv, d, causal, window, dt in cases:
+    for name, b, s, h, hkv, d, causal, window, dt, inputs in cases:
         def rand(*shape):
             a = rng.standard_normal(shape, dtype=np.float32)
             return torch.from_numpy(a).to(dev).to(dt)
-        q, k, v = rand(b, s, h, d), rand(b, s, hkv, d), rand(b, s, hkv, d)
+        if inputs == "qkv":
+            qkv = rand(b, s, 3 * h, d)
+            q, k, v = qkv[:, :, :h], qkv[:, :, h:2 * h], qkv[:, :, 2 * h:]
+        else:
+            q, k, v = rand(b, s, h, d), rand(b, s, hkv, d), rand(b, s, hkv, d)
+        if inputs == "eye":
+            v = torch.zeros_like(v)
+            v[:, torch.arange(s), :, torch.arange(s)] = 1.0
         kw = dict(causal=causal, window=window)
+        p = plan(b, s, h, hkv, d, dt, causal, window)
+        want_variant = "wgmma" if dt == bf16 else "fma_f32"
+        check(p.variant == want_variant, f"flash {name}: variant {p}")
+        check(library_smem_bytes(p, d) == p.smem,
+              f"flash {name}: the plan's shared memory {p.smem} is not the "
+              f"kernel's {library_smem_bytes(p, d)}")
+        reset_counts()
         out = flash_attention_bshd(q, k, v, **kw)
         want = attention_bshd_ref(q, k, v, **kw)
         torch.cuda.synchronize()
+        check(dict(flash_attention_bshd.variants) == {want_variant: 1},
+              f"flash {name}: calls by variant "
+              f"{dict(flash_attention_bshd.variants)}")
         check(out.dtype == want.dtype and out.shape == want.shape,
               f"flash {name}: {out.dtype}{tuple(out.shape)} vs plain "
               f"{want.dtype}{tuple(want.shape)}")
@@ -498,14 +589,56 @@ def attention_phase(flash_attention_bshd, attention_bshd_ref,
         library_ms = time_cuda(lib, flush)
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=library_ms)
-        print(f"[kernel] flash_attention {name}: err={err:.3g} row-scaled "
-              f"{row_err:.3g} (tol {FLASH_ROW_TOL[dt]:.3g}) | kernel "
-              f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, sdpa "
-              f"{library_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us "
-              f"({bound_by}; {flops / 1e9:.2f} GFLOP, "
+                          library_ms=library_ms, variant=p.variant)
+        extra = ""
+        if name in (FLASH_PATH, FLASH_GRANITE):
+            # the first design on the same inputs
+            scale = d ** -0.5
+            old = plan(b, s, h, hkv, d, dt, causal, window,
+                       variant="mma_sync")
+            old_out = run_plan(old, q, k, v, scale=scale, **kw)
+            torch.cuda.synchronize()
+            _, old_row_err = _row_scaled(old_out, want)
+            check(old_row_err <= FLASH_ROW_TOL[dt],
+                  f"flash {name} mma_sync: row-scaled error {old_row_err} > "
+                  f"{FLASH_ROW_TOL[dt]}")
+            was_ms = time_cuda(
+                lambda: run_plan(old, q, k, v, scale=scale, **kw), flush)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(CUDA_ITERS):
+                flash_attention_bshd(q, k, v, **kw)
+            host_us = (time.perf_counter() - t0) / CUDA_ITERS * 1e6
+            torch.cuda.synchronize()
+            rows[name]["was_ms"] = was_ms
+            extra = (f" | mma_sync (was) {was_ms * 1e3:.1f} us (row-scaled "
+                     f"{old_row_err:.3g}); {flops / ms / 1e9:.1f} TFLOP/s "
+                     f"(mma_sync {flops / was_ms / 1e9:.1f}); host "
+                     f"{host_us:.1f} us per call")
+        print(f"[kernel] flash_attention {name}: {p.variant} ({p.stages} "
+              f"stages, {p.tiles} kv tiles per head); err={err:.3g} "
+              f"row-scaled {row_err:.3g} (tol {FLASH_ROW_TOL[dt]:.3g}) | "
+              f"kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+              f"sdpa {library_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} "
+              f"us ({bound_by}; {flops / 1e9:.2f} GFLOP, "
               f"{bytes_moved / 1e6:.2f} MB; {100 * bound_ms / ms:.1f}% of "
-              f"bound)")
+              f"bound){extra}")
+        if name == FLASH_PATH:
+            # the denominator: the row sum of the unrounded probabilities
+            # (as the TPU kernel) against that of the rounded ones (the
+            # first design), both in f32 against the f32 plain version
+            want32 = attention_bshd_ref(q.float(), k.float(), v.float(),
+                                        **kw)
+            before, after = _denominators(q, k, v, d ** -0.5)
+            _, e_before = _row_scaled(before, want32)
+            _, e_after = _row_scaled(after, want32)
+            _, e_kernel = _row_scaled(out, want32)
+            del want32, before, after
+            print(f"[kernel] flash_attention {name}: row-scaled error "
+                  f"against the f32 plain version, probabilities rounded to "
+                  f"bf16 for PV, f32 output: row sum of the rounded values "
+                  f"(before) {e_before:.3g}, of the unrounded ones (after) "
+                  f"{e_after:.3g}; the kernel's bf16 output {e_kernel:.3g}")
     del flush
     return rows
 
@@ -657,13 +790,19 @@ def _profile(tag, what, fn, n=1):
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"[{tag}]   {t / 1e3 / n:.3f} ms, {c // n} calls per call: "
               f"{name[:90]}")
-    lora = [(t, c) for name, (t, c) in by_name.items()
-            if "xa_bf16_kernel" in name or "lora_wgmma_kernel" in name]
-    if lora:
-        t = sum(t for t, _ in lora)
-        print(f"[{tag}]   lora_matmul forward (pre-pass and main kernel): "
-              f"{t / 1e3 / n:.3f} ms in {sum(c for _, c in lora) // n} "
-              f"launches per call, {100 * t / busy_us:.1f}% of device busy")
+    for what_, keys in (
+            ("lora_matmul forward (pre-pass and main kernel)",
+             ("xa_bf16_kernel", "lora_wgmma_kernel")),
+            ("flash_attention forward", ("flash_wgmma_kernel",
+                                         "flash_bf16_kernel",
+                                         "flash_f32_kernel"))):
+        hits = [(t, c) for name, (t, c) in by_name.items()
+                if any(k in name for k in keys)]
+        if hits:
+            t = sum(t for t, _ in hits)
+            print(f"[{tag}]   {what_}: {t / 1e3 / n:.3f} ms in "
+                  f"{sum(c for _, c in hits) // n} launches per call, "
+                  f"{100 * t / busy_us:.1f}% of device busy")
 
 
 def parity_phase(seed: int = 0):
@@ -728,6 +867,8 @@ def train_phase(seed: int = 0):
                                             make_federated_data)
     from repro_torch.federated.client import make_local_train
     from repro_torch.kernels.flash_attention import flash_attention_bshd
+    from repro_torch.kernels.flash_attention import (
+        reset_counts as reset_flash_counts)
     from repro_torch.kernels.flash_decode import flash_decode_bhrd
     from repro_torch.kernels.lora_matmul import (lora_matmul_fused,
                                                  reset_counts)
@@ -778,6 +919,7 @@ def train_phase(seed: int = 0):
         for fn in kernels:
             fn.launches = 0
         reset_counts()
+        reset_flash_counts()
         t0 = time.perf_counter()
         new_lora, loss = round_step(params, lora, batches, lr)
         loss = float(loss)                               # waits
@@ -787,6 +929,7 @@ def train_phase(seed: int = 0):
         check(launches == want, f"launches {launches}, want {want} (the "
               f"backward launches no kernel)")
         _check_lora_variants(lora_matmul_fused, "train")
+        _check_flash_variant(flash_attention_bshd, "train")
     peak = torch.cuda.max_memory_allocated()
     wall = float(np.median(walls))
 
@@ -1146,6 +1289,8 @@ def devft_phase(arch, config_of, want_config, want_caps, per_layer,
     from repro_torch.federated.methods.devft import DevFT
     from repro_torch.interop import tree_map
     from repro_torch.kernels.flash_attention import flash_attention_bshd
+    from repro_torch.kernels.flash_attention import (
+        reset_counts as reset_flash_counts)
     from repro_torch.kernels.flash_decode import flash_decode_bhrd
     from repro_torch.kernels.lora_matmul import (lora_matmul_fused,
                                                  reset_counts)
@@ -1215,6 +1360,7 @@ def devft_phase(arch, config_of, want_config, want_caps, per_layer,
         for fn in kernels:
             fn.launches = 0
         reset_counts()
+        reset_flash_counts()
         t0 = time.perf_counter()
         result = run_experiment(spec, device="cuda", dtype=torch.bfloat16,
                                 round_progress=lambda log: print(
@@ -1247,6 +1393,7 @@ def devft_phase(arch, config_of, want_config, want_caps, per_layer,
             for fn in kernels}
     check(launches == want, f"launches {launches}, want {want}")
     _check_lora_variants(lora_matmul_fused, "devft")
+    _check_flash_variant(flash_attention_bshd, "devft")
     check(forwards_layers == want_forward_layers,
           f"{forwards_layers} forward layers")
     for log in result.logs:
@@ -1405,7 +1552,7 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:126",
              launches=train_launches["flash_attention_bshd"],
-             **flash_rows["path B4 S1024 H32 D128 causal bf16"]),
+             **flash_rows[FLASH_PATH]),
         dict(name="moe_expert_ffn", route="cuda",
              source="src/repro_torch/kernels/csrc/moe_ffn.cu",
              replaces="src/repro/kernels/moe_ffn.py:92",
