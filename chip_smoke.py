@@ -16,7 +16,11 @@ parity at reduced sizes. Phases, in order:
 2. kernels: ``flash_decode``, ``lora_matmul``, ``flash_attention``,
    ``moe_expert_ffn`` and ``ssd_scan`` vs their plain versions (max abs
    error and error scaled to each row's output size; exact zeros for
-   empty MoE rows; ``ssd_scan`` also vs the f32 sequential oracle, with
+   empty MoE rows and empty decode slots; ``flash_decode`` with the
+   variant of every case, a cache holding NaN at or past each slot's
+   valid length (bit-equal to the kernel on zeros there), and at the
+   path shapes the first design's (``fma``) time, the times after a
+   clean (read) L2 flush, host time and CUDA kernels per call; ``ssd_scan`` also vs the f32 sequential oracle, with
    ragged S, G > 1, underflowing decays and empty dt rows;
    ``lora_matmul`` at ranks 32, 65 and 128 and ragged shapes, also vs
    an f64 oracle at the llama shape, with its variant, padding, pre-pass
@@ -32,8 +36,10 @@ parity at reduced sizes. Phases, in order:
 3. serving: qwen2-7b unreduced (28 layers, d 3584, 28/4 heads, vocab
    152064), bf16, 4 resident rank-8 adapters, 8 slots, 16 requests;
    ``flash_decode`` must have launched once per layer per engine step,
-   and the decode path must launch none of the training kernels;
-4. trace: device busy share over a few profiled engine steps;
+   every call on its ``tma_mma`` kernel, and the decode path must launch
+   none of the training kernels;
+4. trace: device busy share over a few profiled engine steps, and
+   ``flash_decode``'s share of it;
 5. parity: reduced qwen2-7b in f32 gives the same greedy tokens on the
    card (kernel) and on the CPU (plain version);
 6. train: llama2-7b-proxy unreduced (32 layers, d 4096, 32/32 heads,
@@ -114,16 +120,22 @@ def nvidia_smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_cuda(fn, flush: torch.Tensor, iters: int = CUDA_ITERS) -> float:
+def time_cuda(fn, flush: torch.Tensor, iters: int = CUDA_ITERS,
+              clean: bool = False) -> float:
     """Median device time (ms) of one ``fn()`` call. Before each timed
     call the L2 cache is flushed and the stream is held busy, so the
     events bracket the call's device work only, with a cold L2 as in the
-    serving step (each layer's cache is different memory)."""
+    serving step (each layer's cache is different memory). The flush
+    writes ``flush``, so L2 is left full of dirty lines that the call
+    writes back as it reads; ``clean`` flushes by reading it instead."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(iters):
-        flush.zero_()
+        if clean:
+            flush.sum()
+        else:
+            flush.zero_()
         torch.cuda._sleep(1_000_000)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
@@ -154,23 +166,56 @@ def device_phase(build):
     return name, smi, seconds
 
 
+#: the flash_decode cases of the ``kernels`` line (qwen2-7b's decode at a
+#: long cache) and of the serving phase's own shape
+DECODE_PATH = "path C4096 bf16"
+DECODE_SERVE = "serve C1024 bf16"
+
+
+def _kernels_per_call(fn, n: int = 5) -> float:
+    """CUDA kernels one ``fn()`` call runs, counted by torch.profiler
+    over ``n`` calls (nan if the profiler sees no device activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(kernels) / n if kernels else float("nan")
+
+
 def kernel_phase(flash_decode_bhrd, flash_decode_ref, seed: int = 0):
     """flash_decode vs its plain version at the serving shapes."""
+    from repro_torch.kernels.flash_decode import plan, run_plan, sm_count
+
     dev = "cuda"
     rng = np.random.default_rng(np.random.SeedSequence((seed, 1)))
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     cases = [  # name, B, H, Hkv, hd, vd, C, q dtype, cache dtype
-        ("path C4096 bf16", 8, 28, 4, 128, 128, 4096,
+        (DECODE_PATH, 8, 28, 4, 128, 128, 4096,
          torch.bfloat16, torch.bfloat16),
         ("path C4096 f32-q bf16-cache", 8, 28, 4, 128, 128, 4096,
          torch.float32, torch.bfloat16),
         ("path C4096 f32", 8, 28, 4, 128, 128, 4096,
          torch.float32, torch.float32),
-        ("serve C1024 bf16", 8, 28, 4, 128, 128, 1024,
+        (DECODE_SERVE, 8, 28, 4, 128, 128, 1024,
          torch.bfloat16, torch.bfloat16),
         ("mla-reduced f32", 4, 4, 1, 48, 32, 64,
          torch.float32, torch.float32),
         ("mla-reduced bf16", 4, 4, 1, 48, 32, 64,
+         torch.bfloat16, torch.bfloat16),
+        # rows at or past valid hold NaN: they must add nothing
+        ("path C4096 bf16 NaN past valid", 8, 28, 4, 128, 128, 4096,
+         torch.bfloat16, torch.bfloat16),
+        # minicpm-2b's head dim; 16 query heads a kv head with a cache
+        # that is no whole number of tiles
+        ("minicpm hd64 C2048 bf16", 8, 36, 36, 64, 64, 2048,
+         torch.bfloat16, torch.bfloat16),
+        ("rep16 C1000 bf16", 4, 32, 2, 128, 128, 1000,
          torch.bfloat16, torch.bfloat16),
     ]
     rows = {}
@@ -186,10 +231,29 @@ def kernel_phase(flash_decode_bhrd, flash_decode_ref, seed: int = 0):
                                                        size=b - len(fixed))),
                             np.int32)[:b]
         valid = torch.from_numpy(valid_np).to(dev)
+        p = plan(b, h, hkv, cap, hd, vd, qdt, kvdt, sm_count(q.device))
+        check(p.variant == ("tma_mma" if qdt == kvdt == torch.bfloat16
+                            else "fma"),
+              f"{name}: plan picked {p.variant}")
 
+        extra = ""
+        if "NaN" in name:
+            # the kernel on the cache with NaN rows past valid, bit for bit
+            # against the kernel on a copy with zeros there
+            dead = (torch.arange(cap, device=dev)[None, :]
+                    >= valid[:, None])[:, :, None, None]   # (B, C, 1, 1)
+            k_nan, v_nan = k.masked_fill(dead, float("nan")), \
+                v.masked_fill(dead, float("nan"))
+            k, v = k.masked_fill(dead, 0.0), v.masked_fill(dead, 0.0)
+            out_nan = flash_decode_bhrd(q, k_nan, v_nan, kv_valid_len=valid)
+            del k_nan, v_nan
         out = flash_decode_bhrd(q, k, v, kv_valid_len=valid)
         want = flash_decode_ref(q, k, v, kv_valid_len=valid)
         torch.cuda.synchronize()
+        if "NaN" in name:
+            check(torch.equal(out_nan, out),
+                  f"{name}: NaN rows past valid changed the output")
+            extra = " | NaN rows past valid: output bit-equal to zeros there"
         check(out.dtype == want.dtype and out.shape == want.shape,
               f"{name}: {out.dtype}{tuple(out.shape)} vs plain "
               f"{want.dtype}{tuple(want.shape)}")
@@ -211,11 +275,13 @@ def kernel_phase(flash_decode_bhrd, flash_decode_ref, seed: int = 0):
                        + live * hkv * (hd + vd) * esz_kv
                        + out.numel() * out.element_size())
         flops = 2 * live * h * (hd + vd)
-        t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOPS
-        bound_ms = 1e3 * max(t_bytes, t_ops)
+        bound_ms, bound_by = _bound(
+            bytes_moved, flops,
+            BF16_FLOPS if qdt == kvdt == torch.bfloat16 else F32_FLOPS)
 
-        ms = time_cuda(lambda: flash_decode_bhrd(q, k, v, kv_valid_len=valid),
-                       flush)
+        call = lambda: flash_decode_bhrd(q, k, v,  # noqa: E731
+                                         kv_valid_len=valid)
+        ms = time_cuda(call, flush)
         plain_ms = time_cuda(
             lambda: flash_decode_ref(q, k, v, kv_valid_len=valid), flush)
         # yardstick only: one PyTorch call for the same function
@@ -228,17 +294,58 @@ def kernel_phase(flash_decode_bhrd, flash_decode_ref, seed: int = 0):
         library_ms = time_cuda(
             lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True), flush)
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms,
-                          bound_by="bytes" if t_bytes >= t_ops
-                          else "operations",
-                          library_ms=library_ms)
-        print(f"[kernel] flash_decode {name}: B={b} H={h}/{hkv} hd={hd} "
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=library_ms, variant=p.variant)
+        if name in (DECODE_PATH, DECODE_SERVE):
+            # the first design (fma) on the same inputs
+            scale = hd ** -0.5
+            old = plan(b, h, hkv, cap, hd, vd, qdt, kvdt, sm_count(q.device),
+                       variant="fma")
+            old_out = run_plan(old, q, k, v, valid, scale)
+            torch.cuda.synchronize()
+            old_err, old_row_err = _row_scaled(old_out[nonempty],
+                                               want[nonempty])
+            check(old_err <= tol and old_row_err <= row_tol,
+                  f"{name} fma: errors {old_err}, {old_row_err} > "
+                  f"{tol}, {row_tol}")
+            was = lambda: run_plan(old, q, k, v, valid, scale)  # noqa: E731
+            lib = lambda: sdpa(qs, ks, vs, attn_mask=mask,  # noqa: E731
+                               enable_gqa=True)
+            was_ms = time_cuda(was, flush)
+            # the same three after a flush that leaves L2 clean: without
+            # the write-back of ~50 MB of dirty lines the dirty flush adds
+            clean = {what: time_cuda(fn, flush, clean=True)
+                     for what, fn in (("kernel", call), ("fma", was),
+                                      ("sdpa", lib))}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(CUDA_ITERS):
+                call()
+            host_us = (time.perf_counter() - t0) / CUDA_ITERS * 1e6
+            torch.cuda.synchronize()
+            per_call = _kernels_per_call(call)
+            rows[name].update(was_ms=was_ms, host_us=host_us,
+                              kernels_per_call=per_call,
+                              clean_l2_ms=clean["kernel"],
+                              clean_l2_was_ms=clean["fma"],
+                              clean_l2_library_ms=clean["sdpa"])
+            extra = (f" | fma (was) {was_ms * 1e3:.1f} us (row-scaled "
+                     f"{old_row_err:.3g}); clean L2: kernel "
+                     f"{clean['kernel'] * 1e3:.1f} us "
+                     f"({100 * bound_ms / clean['kernel']:.1f}% of bound), "
+                     f"fma {clean['fma'] * 1e3:.1f}, sdpa "
+                     f"{clean['sdpa'] * 1e3:.1f}; host {host_us:.1f} us per "
+                     f"call; {per_call:g} CUDA kernels per call")
+        print(f"[kernel] flash_decode {name}: {p.variant} (chunk {p.chunk}, "
+              f"grid {p.grid}, {p.stages} stages, {p.smem} B shared); "
+              f"B={b} H={h}/{hkv} hd={hd} "
               f"vd={vd} C={cap} valid={valid_np.tolist()} err={err:.3g} "
               f"(tol {tol}) row-scaled {row_err:.3g} (tol {row_tol:.3g}) "
               f"| kernel {ms * 1e3:.1f} us, plain "
               f"{plain_ms * 1e3:.1f} us, sdpa {library_ms * 1e3:.1f} us, "
-              f"bound {bound_ms * 1e3:.2f} us ({bytes_moved / 1e6:.2f} MB, "
-              f"{100 * bound_ms / ms:.1f}% of bound)")
+              f"bound {bound_ms * 1e3:.2f} us ({bound_by}; "
+              f"{bytes_moved / 1e6:.2f} MB, "
+              f"{100 * bound_ms / ms:.1f}% of bound){extra}")
     del flush
     return rows
 
@@ -688,6 +795,7 @@ def serving_phase(seed: int = 0):
                moe_expert_ffn_ecd, ssd_scan_bshp)
     for fn in kernels:
         fn.launches = 0
+    flash_decode_bhrd.variants.clear()
     t_warm = time.perf_counter()
     engine.warmup()
     warm_s = time.perf_counter() - t_warm
@@ -714,6 +822,9 @@ def serving_phase(seed: int = 0):
     check(launches == cfg.n_layers * steps,
           f"flash_decode launched {launches} times for {steps} steps x "
           f"{cfg.n_layers} layers")
+    check(dict(flash_decode_bhrd.variants) == {"tma_mma": launches},
+          f"flash_decode variants {dict(flash_decode_bhrd.variants)} of "
+          f"{launches} calls")
 
     decode_times = [dt for r in reqs for dt in r.decode_times]
     ttft = [r.ttft_s for r in reqs]
@@ -723,7 +834,8 @@ def serving_phase(seed: int = 0):
           f"{int(lens.max())} (sum {int(lens.sum())}), gen {gen_len}, "
           f"{n_slots} slots, capacity {capacity}, {n_adapters} adapters")
     print(f"[serve] engine steps {steps} (warm-up {warm_s:.2f} s), "
-          f"flash_decode launches {launches} = {cfg.n_layers} x {steps}")
+          f"flash_decode launches {launches} = {cfg.n_layers} x {steps}, "
+          f"all on the tma_mma kernel")
     print(f"[serve] TTFT p50 {np.percentile(ttft, 50) * 1e3:.1f} ms | "
           f"decode step p50 {np.percentile(decode_times, 50) * 1e3:.2f} ms "
           f"p99 {np.percentile(decode_times, 99) * 1e3:.2f} ms "
@@ -795,7 +907,11 @@ def _profile(tag, what, fn, n=1):
              ("xa_bf16_kernel", "lora_wgmma_kernel")),
             ("flash_attention forward", ("flash_wgmma_kernel",
                                          "flash_bf16_kernel",
-                                         "flash_f32_kernel"))):
+                                         "flash_f32_kernel")),
+            ("flash_decode", ("decode_mma_kernel",
+                              "decode_mma_combine_kernel",
+                              "decode_split_kernel",
+                              "decode_combine_kernel"))):
         hits = [(t, c) for name, (t, c) in by_name.items()
                 if any(k in name for k in keys)]
         if hits:
@@ -1542,7 +1658,7 @@ def main() -> int:
         dict(name="flash_decode", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_decode.cu",
              replaces="src/repro/kernels/flash_decode.py:135",
-             launches=launches, **rows["path C4096 bf16"]),
+             launches=launches, **rows[DECODE_PATH]),
         dict(name="lora_matmul", route="cuda",
              source="src/repro_torch/kernels/csrc/lora_matmul.cu",
              replaces="src/repro/kernels/lora_matmul.py:94",
