@@ -20,8 +20,14 @@ parity at reduced sizes. Phases, in order:
    variant of every case, a cache holding NaN at or past each slot's
    valid length (bit-equal to the kernel on zeros there), and at the
    path shapes the first design's (``fma``) time, the times after a
-   clean (read) L2 flush, host time and CUDA kernels per call; ``ssd_scan`` also vs the f32 sequential oracle, with
-   ragged S, G > 1, underflowing decays and empty dt rows;
+   clean (read) L2 flush, host time and CUDA kernels per call;
+   ``ssd_scan`` also vs the f32 sequential oracle, with ragged S, G > 1,
+   underflowing decays, empty dt rows, 16 chunks (S 4096), x/b/c two
+   elements off TMA's alignment (planned ``fma``), jamba's N 16 and chunks
+   shorter than a tile, each case with its variant, two calls' bit-
+   equality, the error's margin under both limits, the workspace, host
+   time and CUDA kernels per call, and on ``mma`` cases the first
+   design's (``fma``) time;
    ``lora_matmul`` at ranks 32, 65 and 128 and ragged shapes, also vs
    an f64 oracle at the llama shape, with its variant, padding, pre-pass
    time, the other tile width's time and host time per call;
@@ -71,8 +77,9 @@ parity at reduced sizes. Phases, in order:
 9. devft on mamba2-2.7b unreduced (64 layers, d 2560, d_inner 5120, 80
    heads of 64, N 128, G 1, chunk 256, vocab 50280) through the same
    function with the same settings: capacities 8, 16, 32, 64; exact
-   launch counts (``ssd_scan`` 600, ``lora_matmul`` 1200 on in_proj and
-   out_proj, the other three 0); the profiled step at capacity 64.
+   launch counts (``ssd_scan`` 600, every call on its ``mma`` kernel,
+   ``lora_matmul`` 1200 on in_proj and out_proj, the other three 0); the
+   profiled step at capacity 64 with ``ssd_scan``'s share.
 
 Every phase raises on failure, so the script exits non-zero; it also
 exits non-zero, printing no result, without a CUDA card or without the
@@ -173,8 +180,11 @@ DECODE_SERVE = "serve C1024 bf16"
 
 
 def _kernels_per_call(fn, n: int = 5) -> float:
-    """CUDA kernels one ``fn()`` call runs, counted by torch.profiler
-    over ``n`` calls (nan if the profiler sees no device activity)."""
+    """CUDA kernels one ``fn()`` call launches, from torch.profiler's
+    host-side launch records over ``n`` calls (nan if it records none).
+    Its device-side kernel records are no count: over a short window they
+    drop the first kernel or carry earlier ones over (4 or 7 seen for 5
+    one-kernel calls on the H100); the launch records do not."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -184,8 +194,9 @@ def _kernels_per_call(fn, n: int = 5) -> float:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return len(kernels) / n if kernels else float("nan")
+    launches = [e for e in prof.events() if e.device_type != DeviceType.CUDA
+                and "LaunchKernel" in e.name]
+    return len(launches) / n if launches else float("nan")
 
 
 def kernel_phase(flash_decode_bhrd, flash_decode_ref, seed: int = 0):
@@ -911,7 +922,8 @@ def _profile(tag, what, fn, n=1):
             ("flash_decode", ("decode_mma_kernel",
                               "decode_mma_combine_kernel",
                               "decode_split_kernel",
-                              "decode_combine_kernel"))):
+                              "decode_combine_kernel")),
+            ("ssd_scan", ("ssd_mma_kernel", "ssd_scan_kernel"))):
         hits = [(t, c) for name, (t, c) in by_name.items()
                 if any(k in name for k in keys)]
         if hits:
@@ -1300,44 +1312,84 @@ def _ssd_flops(bsz, s, h, p, n, chunk):
     return bsz * h * (pairs * 2 * (n + p) + inter + update)
 
 
+#: the ssd_scan case of the ``kernels`` line: one Mamba-2 layer of the
+#: mamba2-2.7b training step
+SSD_PATH = "path B4 S1024 H80 P64 N128 G1 c256 bf16"
+
+
+def _check_ssd_variant(ssd_scan_bshp, tag):
+    """Every ssd_scan call since the last ``reset_counts`` ran the mma
+    kernel."""
+    fn = ssd_scan_bshp
+    check(set(fn.variants) <= {"mma"} and fn.variants["mma"] == fn.launches,
+          f"{tag}: ssd_scan variants {dict(fn.variants)} of {fn.launches} "
+          f"calls")
+    if fn.launches:
+        print(f"[{tag}] ssd_scan: all {fn.launches} calls on the mma kernel")
+
+
 def ssd_phase(ssd_scan_bshp, ssd_chunked_ref, ssd_oracle, seed: int = 0):
     """ssd_scan vs its plain chunked version and the f32 sequential
     oracle; the path shape is one Mamba-2 layer of the mamba2-2.7b
     training step (4 x 1024 tokens, 80 heads of 64, N 128, G 1, chunk
-    256), x, b and c read in place from one conv output as on the path."""
+    256), x, b and c read in place from one conv output as on the path.
+    Each case prints its variant, the error's margin under both limits,
+    whether two calls gave the same bits, the workspace, host time and
+    CUDA kernels per call, and for mma cases the first design's (fma)
+    time on the same inputs."""
+    from repro_torch.kernels.ssd_scan import (aligned, library_smem_bytes,
+                                              plan, reset_counts, run_plan,
+                                              sm_count)
+
     dev = "cuda"
     rng = np.random.default_rng(np.random.SeedSequence((seed, 9)))
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [  # name, B, S, H, P, G, N, chunk, dtype, decay, empty dt rows
-        ("path B4 S1024 H80 P64 N128 G1 c256 bf16", 4, 1024, 80, 64, 1, 128,
-         256, bf16, "model", False),
+    cases = [  # name, B, S, H, P, G, N, chunk, dtype, decay, empty dt
+        # rows, x/b/c offset (elements) in the conv output, variant
+        (SSD_PATH, 4, 1024, 80, 64, 1, 128, 256, bf16, "model", False, 0,
+         "mma"),
         ("path B4 S1024 H80 P64 N128 G1 c256 f32", 4, 1024, 80, 64, 1, 128,
-         256, f32, "model", False),
+         256, f32, "model", False, 0, "fma"),
         ("ragged S1000 bf16", 4, 1000, 80, 64, 1, 128, 256, bf16, "model",
-         False),
+         False, 0, "mma"),
         ("groups H64 G8 bf16", 2, 1024, 64, 64, 8, 128, 256, bf16, "model",
-         False),
+         False, 0, "mma"),
         ("underflow a=-16 dt~3 bf16", 2, 1024, 80, 64, 1, 128, 256, bf16,
-         "strong", False),
+         "strong", False, 0, "mma"),
         ("underflow a=-16 dt~3 f32", 2, 1024, 16, 64, 1, 128, 256, f32,
-         "strong", False),
+         "strong", False, 0, "fma"),
         ("empty dt rows bf16", 2, 1024, 80, 64, 1, 128, 256, bf16, "model",
-         True),
+         True, 0, "mma"),
+        # 16 chunks: a long look-back chain
+        ("long S4096 bf16", 2, 4096, 80, 64, 1, 128, 256, bf16, "model",
+         False, 0, "mma"),
+        # x, b and c 2 elements (4 bytes) off TMA's 16-byte alignment
+        ("misaligned +2 bf16", 2, 1024, 80, 64, 1, 128, 256, bf16, "model",
+         False, 2, "fma"),
+        # jamba-v0.1's Mamba layer: N 16, one 64-column box zero-filled
+        ("jamba H128 P64 N16 bf16", 2, 1024, 128, 64, 1, 16, 256, bf16,
+         "model", False, 0, "mma"),
+        # chunks and a sequence shorter than one 64-row tile
+        ("small P16 N16 G2 c16 S50 bf16", 2, 50, 4, 16, 2, 16, 16, bf16,
+         "model", True, 0, "mma"),
         ("small P16 N8 G2 c16 S50 f32", 2, 50, 4, 16, 2, 8, 16, f32, "model",
-         True),
+         True, 0, "fma"),
     ]
     rows = {}
-    for name, bsz, s, h, p, g, n, chunk, dt_, decay, empty in cases:
+    for (name, bsz, s, h, p, g, n, chunk, dt_, decay, empty, off,
+         want_variant) in cases:
         def rand(*shape, std=1.0):
             a = rng.standard_normal(shape, dtype=np.float32) * std
             return torch.from_numpy(a).to(dev)
         din = h * p
-        # x, b and c as strided slices of one (B, S, din + 2 G N) tensor
-        xbc = torch.nn.functional.silu(rand(bsz, s, din + 2 * g * n)).to(dt_)
-        x = xbc[..., :din].reshape(bsz, s, h, p)
-        b = xbc[..., din:din + g * n].reshape(bsz, s, g, n)
-        c = xbc[..., din + g * n:].reshape(bsz, s, g, n)
+        # x, b and c as strided slices of one (B, S, off + din + 2 G N)
+        # tensor, as the model's conv output
+        xbc = torch.nn.functional.silu(
+            rand(bsz, s, off + din + 2 * g * n)).to(dt_)
+        x = xbc[..., off:off + din].reshape(bsz, s, h, p)
+        b = xbc[..., off + din:off + din + g * n].reshape(bsz, s, g, n)
+        c = xbc[..., off + din + g * n:].reshape(bsz, s, g, n)
         shift = 3.0 if decay == "strong" else 0.0
         dt = torch.nn.functional.softplus(rand(bsz, s, h) + shift)
         if empty:
@@ -1346,10 +1398,22 @@ def ssd_phase(ssd_scan_bshp, ssd_chunked_ref, ssd_oracle, seed: int = 0):
         a = (torch.full((h,), -16.0, device=dev) if decay == "strong"
              else -torch.linspace(1.0, 16.0, h, device=dev))
         d = rand(h)
+        pl = plan(bsz, s, h, p, g, n, chunk, dt_, sm_count(x.device),
+                  aligned(x, b, c))
+        check(pl.variant == want_variant,
+              f"ssd {name}: plan picked {pl.variant}, want {want_variant}")
+        check(library_smem_bytes(pl, n) == pl.smem,
+              f"ssd {name}: the plan's shared memory {pl.smem} is not the "
+              f"kernel's {library_smem_bytes(pl, n)}")
+        reset_counts()
         out = ssd_scan_bshp(x, dt, a, b, c, d, chunk=chunk)
+        again = ssd_scan_bshp(x, dt, a, b, c, d, chunk=chunk)
         want = ssd_chunked_ref(x, dt, a, b, c, d, chunk=chunk)
         oracle = ssd_oracle(x.float(), dt, a, b.float(), c.float(), d)
         torch.cuda.synchronize()
+        check(dict(ssd_scan_bshp.variants) == {want_variant: 2},
+              f"ssd {name}: calls by variant {dict(ssd_scan_bshp.variants)}")
+        check(torch.equal(out, again), f"ssd {name}: two calls differ")
         check(out.dtype == want.dtype and out.shape == want.shape,
               f"ssd {name}: {out.dtype}{tuple(out.shape)} vs plain "
               f"{want.dtype}{tuple(want.shape)}")
@@ -1367,22 +1431,53 @@ def ssd_phase(ssd_scan_bshp, ssd_chunked_ref, ssd_oracle, seed: int = 0):
         flops = _ssd_flops(bsz, s, h, p, n, chunk)
         bound_ms, bound_by = _bound(bytes_moved, flops,
                                     BF16_FLOPS if dt_ == bf16 else F32_FLOPS)
-        ms = time_cuda(lambda: ssd_scan_bshp(x, dt, a, b, c, d, chunk=chunk),
-                       flush)
+        call = lambda: ssd_scan_bshp(x, dt, a, b, c, d,  # noqa: E731
+                                     chunk=chunk)
+        ms = time_cuda(call, flush)
         plain_ms = time_cuda(
             lambda: ssd_chunked_ref(x, dt, a, b, c, d, chunk=chunk), flush)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CUDA_ITERS):
+            call()
+        host_us = (time.perf_counter() - t0) / CUDA_ITERS * 1e6
+        torch.cuda.synchronize()
+        per_call = _kernels_per_call(call)
         # no single PyTorch call computes the SSD scan: library_ms null
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=None)
-        print(f"[kernel] ssd_scan {name}: err={err:.3g} slice-scaled "
-              f"{rel:.3g} (tol {tol:.3g}), vs f32 oracle err={err32:.3g} "
-              f"slice-scaled {rel32:.3g} (tol {tol32:.3g}) | kernel "
-              f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
-              f"{bound_ms * 1e3:.2f} us ({bound_by}; {flops / 1e9:.2f} GFLOP,"
-              f" {bytes_moved / 1e6:.2f} MB; {100 * bound_ms / ms:.1f}% of "
-              f"bound, {flops / ms / 1e9:.1f} TFLOP/s)")
-        del xbc, x, b, c, out, want, oracle
+                          library_ms=None, variant=pl.variant,
+                          workspace_bytes=pl.workspace, host_us=host_us,
+                          kernels_per_call=per_call)
+        extra = ""
+        if pl.variant == "mma":
+            # the first design (fma) on the same inputs
+            old = plan(bsz, s, h, p, g, n, chunk, dt_, sm_count(x.device),
+                       variant="fma")
+            old_out = run_plan(old, x, dt, a, b, c, d)
+            torch.cuda.synchronize()
+            _, old_rel = _slice_scaled(old_out, want)
+            check(old_rel <= tol, f"ssd {name} fma: slice-scaled error "
+                  f"{old_rel} > {tol}")
+            was_ms = time_cuda(lambda: run_plan(old, x, dt, a, b, c, d),
+                               flush)
+            rows[name].update(was_ms=was_ms)
+            extra = f" | fma (was) {was_ms * 1e3:.1f} us"
+        print(f"[kernel] ssd_scan {name}: {pl.variant} (grid {pl.grid}, "
+              f"{pl.waves:.2f} waves, {pl.hpb} heads and {pl.tiles} resident "
+              f"tiles a block, {pl.smem} B shared, workspace "
+              f"{pl.workspace / 1e6:.2f} MB); two calls "
+              f"bit-equal | err={err:.3g} slice-scaled {rel:.3g} (tol "
+              f"{tol:.3g}, margin {tol / max(rel, 1e-30):.2f}x), vs f32 "
+              f"oracle err={err32:.3g} slice-scaled {rel32:.3g} (tol "
+              f"{tol32:.3g}, margin {tol32 / max(rel32, 1e-30):.2f}x) | "
+              f"kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+              f"bound {bound_ms * 1e3:.2f} us ({bound_by}; "
+              f"{flops / 1e9:.2f} GFLOP, {bytes_moved / 1e6:.2f} MB; "
+              f"{100 * bound_ms / ms:.1f}% of bound, "
+              f"{flops / ms / 1e9:.1f} TFLOP/s); host {host_us:.1f} us per "
+              f"call; {per_call:g} CUDA kernels per call{extra}")
+        del xbc, x, b, c, out, again, want, oracle
     del flush
     return rows
 
@@ -1412,6 +1507,8 @@ def devft_phase(arch, config_of, want_config, want_caps, per_layer,
                                                  reset_counts)
     from repro_torch.kernels.moe_ffn import moe_expert_ffn_ecd
     from repro_torch.kernels.ssd_scan import ssd_scan_bshp
+    from repro_torch.kernels.ssd_scan import (
+        reset_counts as reset_ssd_counts)
     from repro_torch.launch import train
     from repro_torch.models import transformer as T
 
@@ -1477,6 +1574,7 @@ def devft_phase(arch, config_of, want_config, want_caps, per_layer,
             fn.launches = 0
         reset_counts()
         reset_flash_counts()
+        reset_ssd_counts()
         t0 = time.perf_counter()
         result = run_experiment(spec, device="cuda", dtype=torch.bfloat16,
                                 round_progress=lambda log: print(
@@ -1510,6 +1608,7 @@ def devft_phase(arch, config_of, want_config, want_caps, per_layer,
     check(launches == want, f"launches {launches}, want {want}")
     _check_lora_variants(lora_matmul_fused, "devft")
     _check_flash_variant(flash_attention_bshd, "devft")
+    _check_ssd_variant(ssd_scan_bshp, "devft")
     check(forwards_layers == want_forward_layers,
           f"{forwards_layers} forward layers")
     for log in result.logs:
@@ -1678,7 +1777,7 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:105",
              launches=mamba_launches["ssd_scan_bshp"],
-             **ssd_rows["path B4 S1024 H80 P64 N128 G1 c256 bf16"]),
+             **ssd_rows[SSD_PATH]),
     ]}
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

@@ -24,8 +24,9 @@ bf16:
   and backward, and agree with the sequential oracle;
 * the registry, the contract and the resolution rules; the Hopper
   wrapper refuses CPU tensors.
-* A ``gpu``-marked test holds the Hopper kernel against the plain version
-  and the oracle on a card (skipped without one).
+* A ``gpu``-marked test holds the Hopper kernel, on the variant its plan
+  picks and forced to ``fma``, against the plain version and the oracle
+  on a card (skipped without one).
 """
 import jax
 import jax.numpy as jnp
@@ -222,26 +223,43 @@ def test_hopper_wrapper_refuses_cpu_tensors():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["plan", "fma"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(1024, 80, 64, 128, 1, 256),
                                    (1000, 64, 64, 128, 8, 256),
                                    (50, 2, 16, 8, 2, 16)])
-def test_hopper_kernel_matches_plain_version(dtype, shape):
+def test_hopper_kernel_matches_plain_version(dtype, shape, variant):
     """Limits and their reasons as ``chip_smoke.py``'s ``SSD_TOL``: error
     scaled by each (batch, head) slice's largest output, against the
     chunked plain version (f32 1e-3; bf16 2**-5: the plain version
-    rounds its weights and terms to bf16 where the kernel keeps f32) and
-    against the f32 sequential oracle (f32 1e-3; bf16 2**-7)."""
+    rounds its weights and terms to bf16 at other points than the
+    kernel) and against the f32 sequential oracle (f32 1e-3; bf16 2**-7).
+    ``plan``: through the wrapper, on the variant the plan picks (mma for
+    bf16 with P and N multiples of 16, else fma); ``fma``: the first
+    design forced on the same inputs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the Hopper kernel has no CPU mode)")
+    from repro_torch.kernels.ssd_scan import (aligned, plan, run_plan,
+                                              sm_count)
     _, tx = _operands(shape, dtype, seed=5)
     x, dt, a, b, c, d = (t.cuda() for t in tx)
-    before = ssd_scan_bshp.launches
-    got = ops.ssd_scan(x, dt, a, b, c, d, chunk=shape[-1])
-    plain = ref.ssd_scan_bshp_chunked_ref(x, dt, a, b, c, d, chunk=shape[-1])
+    s, h, p, n, g, chunk = shape
+    if variant == "plan":
+        want_variant = ("mma" if dtype == "bfloat16" and p % 16 == 0
+                        and n % 16 == 0 else "fma")
+        before = ssd_scan_bshp.launches
+        ssd_scan_bshp.variants.clear()
+        got = ops.ssd_scan(x, dt, a, b, c, d, chunk=chunk)
+        torch.cuda.synchronize()
+        assert ssd_scan_bshp.launches == before + 1
+        assert dict(ssd_scan_bshp.variants) == {want_variant: 1}
+    else:
+        pl = plan(x.shape[0], s, h, p, g, n, chunk, x.dtype,
+                  sm_count(x.device), aligned(x, b, c), variant="fma")
+        got = run_plan(pl, x, dt, a, b, c, d)
+    plain = ref.ssd_scan_bshp_chunked_ref(x, dt, a, b, c, d, chunk=chunk)
     oracle = ref.ssd_scan_bshp_ref(x.float(), dt, a, b.float(), c.float(), d)
     torch.cuda.synchronize()
-    assert ssd_scan_bshp.launches == before + 1
     for want, tol in ((plain, 1e-3 if dtype == "float32" else 2.0 ** -5),
                       (oracle, 1e-3 if dtype == "float32" else 2.0 ** -7)):
         diff = (got.float() - want.float()).abs().amax(dim=(1, 3))
