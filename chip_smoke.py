@@ -28,6 +28,14 @@ parity at reduced sizes. Phases, in order:
    equality, the error's margin under both limits, the workspace, host
    time and CUDA kernels per call, and on ``mma`` cases the first
    design's (``fma``) time;
+   ``moe_expert_ffn`` with the variant of every case (``wgmma`` for
+   bf16, ``fma`` for f32), padding, two calls' bit-equality, host time
+   and CUDA kernels per call (its kernels' registers and spills are
+   among phase 1's ptxas lines), on bf16 cases the first design's
+   (``mma_sync``) time, and
+   on cases with empty rows the call with each expert's fill (the same
+   bits; zeros past the fill even where buf holds values there) with
+   its time and a bound that counts the live rows only;
    ``lora_matmul`` at ranks 32, 65 and 128 and ragged shapes, also vs
    an f64 oracle at the llama shape, with its variant, padding, pre-pass
    time, the other tile width's time and host time per call;
@@ -68,10 +76,12 @@ parity at reduced sizes. Phases, in order:
    resolution and ``run_experiment``: DevFT, 4 rounds in 4 stages
    (capacities 3, 6, 12, 24), 2 of 20 clients x 2 local steps of 4 x
    1024 tokens; exact launch counts (``moe_expert_ffn`` and
-   ``flash_attention`` 225, ``lora_matmul`` 450, the last two all on
-   their wgmma kernels, ``lora_matmul`` unpadded, ``flash_decode`` 0),
+   ``flash_attention`` 225, ``lora_matmul`` 450, all three on their
+   wgmma kernels, ``moe_expert_ffn`` every call with the fill,
+   ``lora_matmul`` and ``moe_expert_ffn`` unpadded, ``flash_decode`` 0),
    per-stage submodel build time, ms per local step, tokens/s and peak
-   memory, one profiled local step at capacity 24, round 0's eval loss
+   memory, one profiled local step at capacity 24 with
+   ``moe_expert_ffn``'s share, round 0's eval loss
    through the kernels vs the plain versions, and the card's DGLG group
    lists against the CPU port's on the same tensors;
 9. devft on mamba2-2.7b unreduced (64 layers, d 2560, d_inner 5120, 80
@@ -89,6 +99,7 @@ card's name and power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -923,7 +934,9 @@ def _profile(tag, what, fn, n=1):
                               "decode_mma_combine_kernel",
                               "decode_split_kernel",
                               "decode_combine_kernel")),
-            ("ssd_scan", ("ssd_mma_kernel", "ssd_scan_kernel"))):
+            ("ssd_scan", ("ssd_mma_kernel", "ssd_scan_kernel")),
+            ("moe_expert_ffn", ("ffn_wgmma_kernel", "ffn_bf16_kernel",
+                                "ffn_f32_kernel"))):
         hits = [(t, c) for name, (t, c) in by_name.items()
                 if any(k in name for k in keys)]
         if hits:
@@ -1174,26 +1187,53 @@ MOE_ROW_TOL = {torch.float32: (1e-5, 1e-5),
                torch.bfloat16: (2.0 ** -5, 2.0 ** -6)}
 
 
+#: the moe_expert_ffn case of the ``kernels`` line (one MoE layer of the
+#: granite-moe-1b-a400m training step)
+MOE_PATH = "path E32 C1280 d1024 ff512 bf16"
+
+
+def _check_moe_variant(moe_expert_ffn_ecd, tag):
+    """Every moe_expert_ffn call since the last ``reset_counts`` ran the
+    wgmma kernel with a fill, unpadded."""
+    fn = moe_expert_ffn_ecd
+    check(set(fn.variants) <= {"wgmma"} and fn.variants["wgmma"] == fn.launches
+          and fn.filled == fn.launches and fn.padded == 0,
+          f"{tag}: moe_expert_ffn variants {dict(fn.variants)}, filled "
+          f"{fn.filled}, padded {fn.padded} of {fn.launches} calls")
+    if fn.launches:
+        print(f"[{tag}] moe_expert_ffn: all {fn.launches} calls on the wgmma "
+              f"kernel with a fill, unpadded")
+
+
 def moe_phase(moe_expert_ffn_ecd, moe_expert_ffn_ref, seed: int = 0):
     """moe_expert_ffn vs its plain version; the path shape is one MoE
     layer of the granite-moe-1b-a400m training step (4 x 1024 tokens,
-    top 8 of 32 experts, capacity 1280)."""
+    top 8 of 32 experts, capacity 1280). Each case prints its variant,
+    whether it padded, two calls' bit-equality, host time and CUDA
+    kernels per call, and on bf16 cases the first design's (mma_sync)
+    time on the same inputs. Cases with empty rows also run with the
+    fill (each expert's live rows): the result must be the same bits,
+    and rows past the fill must come out zero even where buf holds
+    values there; their bound counts the live rows only."""
+    from repro_torch.kernels.moe_ffn import (live_tiles, plan, reset_counts,
+                                             run_plan)
+
     dev = "cuda"
     rng = np.random.default_rng(np.random.SeedSequence((seed, 7)))
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
-    cases = [  # name, E, C, d, ff, dtype, empty experts
-        ("path E32 C1280 d1024 ff512 bf16", 32, 1280, 1024, 512,
-         torch.bfloat16, False),
+    bf16 = torch.bfloat16
+    cases = [  # name, E, C, d, ff, dtype, empty rows, variant
+        (MOE_PATH, 32, 1280, 1024, 512, bf16, False, "wgmma"),
         ("path E32 C1280 d1024 ff512 f32", 32, 1280, 1024, 512,
-         torch.float32, False),
-        ("path with empty experts bf16", 32, 1280, 1024, 512,
-         torch.bfloat16, True),
-        ("ragged E8 C1000 d1000 ff500 bf16", 8, 1000, 1000, 500,
-         torch.bfloat16, True),
-        ("ragged E3 C77 d1001 ff91 bf16", 3, 77, 1001, 91, torch.bfloat16,
-         True),
+         torch.float32, False, "fma"),
+        ("path with empty experts bf16", 32, 1280, 1024, 512, bf16, True,
+         "wgmma"),
+        ("ragged E8 C1000 d1000 ff500 bf16", 8, 1000, 1000, 500, bf16, True,
+         "wgmma"),
+        ("ragged E3 C77 d1001 ff91 bf16", 3, 77, 1001, 91, bf16, True,
+         "wgmma"),
         ("ragged E3 C77 d1001 ff91 f32", 3, 77, 1001, 91, torch.float32,
-         True),
+         True, "fma"),
     ]
 
     def bmm_ffn(buf, wg, wu, wd):
@@ -1201,25 +1241,36 @@ def moe_phase(moe_expert_ffn_ecd, moe_expert_ffn_ref, seed: int = 0):
         return torch.bmm(h, wd)
 
     rows = {}
-    for name, e, c, d, ff, dt, empty in cases:
+    for name, e, c, d, ff, dt, empty, want_variant in cases:
         def rand(*shape, std=1.0):
             a = rng.standard_normal(shape, dtype=np.float32) * std
             return torch.from_numpy(a).to(dev).to(dt)
         buf = rand(e, c, d)
         wg, wu = rand(e, d, ff, std=d ** -0.5), rand(e, d, ff, std=d ** -0.5)
         wd = rand(e, ff, d, std=ff ** -0.5)
+        fill = None
         if empty:
             # slots past each expert's fill are zero, and a few experts
             # got no token at all
             fill = torch.from_numpy(rng.integers(0, c + 1, size=e)).to(dev)
             fill[:max(1, e // 8)] = 0
+            fill = fill.int()
             buf *= (torch.arange(c, device=dev)[None, :]
                     < fill[:, None])[..., None].to(dt)
+        p = plan(e, c, d, ff, dt)
+        check(p.variant == want_variant,
+              f"moe {name}: plan picked {p.variant}, want {want_variant}")
+        reset_counts()
         out = moe_expert_ffn_ecd(buf, wg, wu, wd)
+        again = moe_expert_ffn_ecd(buf, wg, wu, wd)
         want = moe_expert_ffn_ref(buf, wg, wu, wd)
         f32 = moe_expert_ffn_ref(buf.float(), wg.float(), wu.float(),
                                  wd.float())
         torch.cuda.synchronize()
+        check(dict(moe_expert_ffn_ecd.variants) == {want_variant: 2},
+              f"moe {name}: calls by variant "
+              f"{dict(moe_expert_ffn_ecd.variants)}")
+        check(torch.equal(out, again), f"moe {name}: two calls differ")
         check(out.dtype == want.dtype and out.shape == want.shape,
               f"moe {name}: {out.dtype}{tuple(out.shape)} vs plain "
               f"{want.dtype}{tuple(want.shape)}")
@@ -1243,28 +1294,91 @@ def moe_phase(moe_expert_ffn_ecd, moe_expert_ffn_ref, seed: int = 0):
         bytes_moved = esz * (2 * buf.numel() + wg.numel() + wu.numel()
                              + wd.numel())
         flops = 6 * e * c * d * ff
-        bound_ms, bound_by = _bound(
-            bytes_moved, flops,
-            BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
-        ms = time_cuda(lambda: moe_expert_ffn_ecd(buf, wg, wu, wd), flush)
+        peak = BF16_FLOPS if dt == bf16 else F32_FLOPS
+        bound_ms, bound_by = _bound(bytes_moved, flops, peak)
+        call = lambda: moe_expert_ffn_ecd(buf, wg, wu, wd)  # noqa: E731
+        ms = time_cuda(call, flush)
         plain_ms = time_cuda(lambda: moe_expert_ffn_ref(buf, wg, wu, wd),
                              flush)
         # yardstick only: the same function as three torch.bmm calls and
         # silu * mul; no single PyTorch call computes it, so the kernels
         # line carries library_ms null
         bmm_ms = time_cuda(lambda: bmm_ffn(buf, wg, wu, wd), flush)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CUDA_ITERS):
+            call()
+        host_us = (time.perf_counter() - t0) / CUDA_ITERS * 1e6
+        torch.cuda.synchronize()
+        per_call = _kernels_per_call(call)
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=None)
-        print(f"[kernel] moe_expert_ffn {name}: err={err:.3g} row-scaled "
+                          library_ms=None, variant=p.variant,
+                          padded=p.padded, bmm_ms=bmm_ms, host_us=host_us,
+                          kernels_per_call=per_call)
+        extra = ""
+        if dt == bf16:
+            # the first design (mma_sync) on the same inputs
+            old = plan(e, c, d, ff, dt, variant="mma_sync")
+            old_out = run_plan(old, buf, wg, wu, wd)
+            torch.cuda.synchronize()
+            old_err = float(((old_out.float() - want.float()).abs().amax(-1)
+                             [live] / size).max())
+            check(old_err <= tol, f"moe {name} mma_sync: row-scaled error "
+                  f"{old_err} > {tol}")
+            was_ms = time_cuda(lambda: run_plan(old, buf, wg, wu, wd), flush)
+            rows[name].update(was_ms=was_ms)
+            extra += f" | mma_sync (was) {was_ms * 1e3:.1f} us"
+        if fill is not None:
+            # the fill: the same bits where buf is zero past it, and zeros
+            # past it whatever buf holds there
+            filled = moe_expert_ffn_ecd(buf, wg, wu, wd, fill=fill)
+            past = torch.arange(c, device=dev)[None, :] >= fill[:, None]
+            dirty = buf + rand(e, c, d) * past[..., None].to(dt)
+            filled_dirty = moe_expert_ffn_ecd(dirty, wg, wu, wd, fill=fill)
+            torch.cuda.synchronize()
+            check(torch.equal(filled, out), f"moe {name}: the call with the "
+                  f"fill differs from the call without it")
+            check(bool((filled_dirty[past] == 0).all())
+                  and torch.equal(filled_dirty[~past], out[~past]),
+                  f"moe {name}: with the fill, rows past it are not zero or "
+                  f"the live rows changed where buf is not zero past it")
+            fill_host = [int(f) for f in fill.tolist()]
+            n_live = sum(fill_host)
+            live_experts = sum(1 for f in fill_host if f > 0)
+            fill_flops = 6 * n_live * d * ff
+            # live rows of buf read, every output row written, the weights
+            # of experts with a live row read
+            fill_bytes = esz * (n_live * d + e * c * d
+                                + 3 * live_experts * d * ff)
+            fill_bound_ms, fill_by = _bound(fill_bytes, fill_flops, peak)
+            fill_ms = time_cuda(
+                lambda: moe_expert_ffn_ecd(buf, wg, wu, wd, fill=fill), flush)
+            tiles = live_tiles(p, c, fill_host)
+            rows[name].update(fill_ms=fill_ms, fill_bound_ms=fill_bound_ms,
+                              fill_bound_by=fill_by)
+            extra += (f" | with fill ({n_live} of {e * c} rows live, tiles "
+                      f"{tiles[0]}/{math.prod(p.grid1)} + {tiles[1]}/"
+                      f"{math.prod(p.grid2)}): bit-equal, zeros past the "
+                      f"fill over nonzero buf; {fill_ms * 1e3:.1f} us, bound "
+                      f"{fill_bound_ms * 1e3:.2f} us ({fill_by}; "
+                      f"{fill_flops / 1e9:.2f} GFLOP, {fill_bytes / 1e6:.2f} "
+                      f"MB; {100 * fill_bound_ms / fill_ms:.1f}% of bound)")
+        print(f"[kernel] moe_expert_ffn {name}: {p.variant}, "
+              f"{'padded' if p.padded else 'not padded'}, block_n "
+              f"{p.block_n}, grids {math.prod(p.grid1)} + {math.prod(p.grid2)}"
+              f"; two calls bit-equal | err={err:.3g} row-scaled "
               f"{row_err:.3g} (tol {tol:.3g}), vs f32-inside "
               f"{row_err32:.3g} (tol {tol32:.3g}), empty rows "
               f"{int((~live).sum())} exact zeros | kernel "
-              f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bmm "
+              f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bmm x3 "
               f"{bmm_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us "
               f"({bound_by}; {flops / 1e9:.2f} GFLOP, "
               f"{bytes_moved / 1e6:.2f} MB; {100 * bound_ms / ms:.1f}% of "
-              f"bound, {flops / ms / 1e9:.1f} TFLOP/s)")
+              f"bound, {flops / ms / 1e9:.1f} TFLOP/s); host "
+              f"{host_us:.1f} us per call; {per_call:g} CUDA kernels per "
+              f"call{extra}")
+        del buf, wg, wu, wd, out, again, want, f32
     del flush
     return rows
 
@@ -1507,6 +1621,7 @@ def devft_phase(arch, config_of, want_config, want_caps, per_layer,
                                                  reset_counts)
     from repro_torch.kernels.moe_ffn import moe_expert_ffn_ecd
     from repro_torch.kernels.ssd_scan import ssd_scan_bshp
+    from repro_torch.kernels.moe_ffn import reset_counts as reset_moe_counts
     from repro_torch.kernels.ssd_scan import (
         reset_counts as reset_ssd_counts)
     from repro_torch.launch import train
@@ -1575,6 +1690,7 @@ def devft_phase(arch, config_of, want_config, want_caps, per_layer,
         reset_counts()
         reset_flash_counts()
         reset_ssd_counts()
+        reset_moe_counts()
         t0 = time.perf_counter()
         result = run_experiment(spec, device="cuda", dtype=torch.bfloat16,
                                 round_progress=lambda log: print(
@@ -1609,6 +1725,7 @@ def devft_phase(arch, config_of, want_config, want_caps, per_layer,
     _check_lora_variants(lora_matmul_fused, "devft")
     _check_flash_variant(flash_attention_bshd, "devft")
     _check_ssd_variant(ssd_scan_bshp, "devft")
+    _check_moe_variant(moe_expert_ffn_ecd, "devft")
     check(forwards_layers == want_forward_layers,
           f"{forwards_layers} forward layers")
     for log in result.logs:
@@ -1772,7 +1889,7 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/moe_ffn.cu",
              replaces="src/repro/kernels/moe_ffn.py:92",
              launches=granite_launches["moe_expert_ffn_ecd"],
-             **moe_rows["path E32 C1280 d1024 ff512 bf16"]),
+             **moe_rows[MOE_PATH]),
         dict(name="ssd_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:105",

@@ -109,32 +109,42 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
 
 class _MoeExpertFfn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, buf, wg, wu, wd, backend):
-        ctx.save_for_backward(buf, wg, wu, wd)
+    def forward(ctx, buf, wg, wu, wd, fill, backend):
+        ctx.save_for_backward(buf, wg, wu, wd, fill)
         return dispatch.get_kernel("moe_expert_ffn", backend, buf.device)(
-            buf, wg, wu, wd)
+            buf, wg, wu, wd, fill=fill)
 
     @staticmethod
     def backward(ctx, grad_out):
         """Autograd through ``moe_expert_ffn_ref`` on the saved inputs,
         for the inputs that need a gradient (on the training path the
-        experts are frozen: only ``buf``)."""
+        experts are frozen: only ``buf``); none for ``fill``. With a fill
+        the cotangent is zeroed past it first: the same gradients as
+        through the plain version's own masking, in one pass over it
+        instead of a mask in the recompute and another in its backward."""
+        *saved, fill = ctx.saved_tensors
         need = ctx.needs_input_grad[:4]
+        if fill is not None:
+            rows = torch.arange(grad_out.shape[1], device=grad_out.device)
+            grad_out = torch.where((rows[None, :] < fill[:, None])[..., None],
+                                   grad_out, 0)
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(n)
-                      for t, n in zip(ctx.saved_tensors, need)]
+                      for t, n in zip(saved, need)]
             out = ref.moe_expert_ffn_ref(*leaves)
             grads = iter(torch.autograd.grad(
                 out, [t for t, n in zip(leaves, need) if n], grad_out))
-        return (*(next(grads) if n else None for n in need), None)
+        return (*(next(grads) if n else None for n in need), None, None)
 
 
 def moe_expert_ffn(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-                   wd: torch.Tensor, *, backend: str = "auto"
-                   ) -> torch.Tensor:
+                   wd: torch.Tensor, *, fill: Optional[torch.Tensor] = None,
+                   backend: str = "auto") -> torch.Tensor:
     """buf (E, C, d); wg, wu (E, d, ff); wd (E, ff, d), one dtype.
+    ``fill``: None, or (E,) int32 on buf's device; expert e's rows at or
+    past ``fill[e]`` give zeros (``moe_block`` passes its counts).
     Returns (E, C, d) in ``buf.dtype``."""
-    return _MoeExpertFfn.apply(buf, wg, wu, wd, backend)
+    return _MoeExpertFfn.apply(buf, wg, wu, wd, fill, backend)
 
 
 class _SsdScan(torch.autograd.Function):

@@ -81,17 +81,27 @@ def lora_matmul_ref(x, w, a, b, *, scaling: float = 1.0):
     return out.reshape(*lead, w.shape[1])
 
 
-def moe_expert_ffn_ref(buf, wg, wu, wd):
+def moe_expert_ffn_ref(buf, wg, wu, wd, *, fill=None):
     """Batched SwiGLU over per-expert capacity buffers (the JAX package's
     ``expert_ffn_reference``): buf (E, C, d); wg, wu (E, d, ff); wd
     (E, ff, d) -> (E, C, d). Each einsum runs in the input dtype, as in
     JAX, so in bf16 gate, up, the SwiGLU and the output each round. The
     plain version of the ``moe_expert_ffn`` kernel and the function its
     backward differentiates; the kernel's own arithmetic (f32 inside, one
-    rounding) is this function on f32 copies, rounded once."""
+    rounding) is this function on f32 copies, rounded once.
+
+    ``fill``: None, or (E,) integers; expert e's rows at or past
+    ``fill[e]`` give exact zeros (the kernel skips them). Where those
+    rows of buf are zero, as ``moe_block`` leaves them, the result is the
+    same bits with and without it."""
     h = torch.nn.functional.silu(torch.einsum("ecd,edf->ecf", buf, wg)) \
         * torch.einsum("ecd,edf->ecf", buf, wu)
-    return torch.einsum("ecf,efd->ecd", h, wd)
+    out = torch.einsum("ecf,efd->ecd", h, wd)
+    if fill is None:
+        return out
+    rows = torch.arange(buf.shape[1], device=buf.device)
+    live = rows[None, :] < fill.to(buf.device)[:, None]
+    return torch.where(live[..., None], out, 0)
 
 
 def ssd_scan_ref(x, dt, a, b, c, d):

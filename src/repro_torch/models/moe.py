@@ -93,15 +93,19 @@ def _dispatch_indices(idx: torch.Tensor, n_experts: int, capacity: int):
     """slot -> (expert, position-in-expert) with capacity dropping.
 
     idx: (T*k,) expert id per slot, slots in token-major order. Returns
-    (pos (T*k,), keep (T*k,) bool): a slot's position counts the earlier
-    slots routed to the same expert. The count is a scan along the slot
-    axis of the transposed (E, T*k) one-hot, which the card runs as one
-    row per expert (the (T*k, E) layout's scan over the outer axis took
-    ~6 ms per layer at the training path's shape)."""
+    (pos (T*k,), keep (T*k,) bool, fill (E,) int32): a slot's position
+    counts the earlier slots routed to the same expert; ``fill[e]`` is
+    how many rows of expert e's buffer the kept slots take, min(count,
+    capacity), rows 0..fill-1. The count is a scan along the slot axis of
+    the transposed (E, T*k) one-hot, which the card runs as one row per
+    expert (the (T*k, E) layout's scan over the outer axis took ~6 ms per
+    layer at the training path's shape); its last column is each
+    expert's count, so the fill costs no host sync."""
     counts = _one_hot(idx, n_experts).T.contiguous().cumsum(dim=1) - 1
     pos = counts.gather(0, idx[None, :])[0].long()
     keep = pos < capacity
-    return pos, keep
+    fill = torch.clamp(counts[:, -1] + 1, max=capacity).int()
+    return pos, keep, fill
 
 
 def moe_block(params: dict, cfg, x: torch.Tensor, *,
@@ -113,7 +117,7 @@ def moe_block(params: dict, cfg, x: torch.Tensor, *,
     cap = capacity or _capacity(cfg, t)
     w, idx, aux = router_topk(params, cfg, x)                     # (T,k)
     flat_idx = idx.reshape(-1)                                    # (T*k,)
-    pos, keep = _dispatch_indices(flat_idx, e, cap)
+    pos, keep, fill = _dispatch_indices(flat_idx, e, cap)
     # gather tokens into (E, C, d) buffers: kept slots own their row;
     # dropped slots write zeros to the spare row E*C. Slot s holds token
     # s // k: an expand, whose backward is a sum over k (an index's
@@ -124,13 +128,14 @@ def moe_block(params: dict, cfg, x: torch.Tensor, *,
     vals = torch.where(keep[:, None], tokens, 0)
     flat = x.new_zeros((e * cap + 1, d)).index_put((rows,), vals)
     buf = flat[:e * cap].reshape(e, cap, d)
+    # expert e's rows past fill[e] are zero: the kernel skips their tiles
     backend = model_backend(cfg)
     if dispatch.use_kernel(backend, x.device):
         out = ops.moe_expert_ffn(buf, params["wg"], params["wu"],
-                                 params["wd"], backend=backend)
+                                 params["wd"], fill=fill, backend=backend)
     else:
         out = expert_ffn_reference(buf, params["wg"], params["wu"],
-                                   params["wd"])
+                                   params["wd"], fill=fill)
     # combine back: the k contributions of each token, in slot order.
     # index_select's backward adds into unique rows but for the dropped
     # slots' zeros, so its result does not depend on the order of adds

@@ -19,6 +19,10 @@ model against the JAX package, on reduced granite-moe-1b-a400m.
 * The kernel branch, forced on the CPU (``dispatch.use_kernel`` true, so
   the expert FFN goes through the ``moe_expert_ffn`` autograd Function),
   gives the plain path's loss and gradients exactly.
+* ``moe_block`` passes each expert's fill (its kept slots, rows 0..fill-1
+  of its buffer, computed on the device from the dispatch counts) to the
+  expert FFN: its output is the same bits as without the fill, and
+  matches JAX ``moe_block`` at the tolerances above.
 * ``decode_step`` on MoE blocks still raises.
 """
 import dataclasses
@@ -87,10 +91,18 @@ def test_routing_is_exactly_equal(capacity_factor, top_k, test_spec):
     assert cap == JM._capacity(jcfg, t)
     jpos, jkeep = JM._dispatch_indices(jidx.reshape(-1),
                                        jcfg.moe.n_experts, cap)
-    ppos, pkeep = PM._dispatch_indices(pidx.reshape(-1),
-                                       pcfg.moe.n_experts, cap)
+    ppos, pkeep, pfill = PM._dispatch_indices(pidx.reshape(-1),
+                                              pcfg.moe.n_experts, cap)
     np.testing.assert_array_equal(ppos.numpy(), np.asarray(jpos))
     np.testing.assert_array_equal(pkeep.numpy(), np.asarray(jkeep))
+    # the fill: each expert's kept slots, which take its rows 0..fill-1
+    jflat, jk = np.asarray(jidx).reshape(-1), np.asarray(jkeep)
+    want_fill = np.bincount(jflat[jk], minlength=jcfg.moe.n_experts)
+    assert pfill.dtype == torch.int32
+    np.testing.assert_array_equal(pfill.numpy(), want_fill)
+    for ex in range(jcfg.moe.n_experts):
+        rows = np.sort(np.asarray(jpos)[jk & (jflat == ex)])
+        np.testing.assert_array_equal(rows, np.arange(int(pfill[ex])))
     if capacity_factor < 1:
         assert not bool(pkeep.all())             # slots really drop
     else:
@@ -141,11 +153,56 @@ def test_moe_block_matches_jax(dtype, capacity_factor, test_spec):
     # come out as exact zeros in both
     _, idx, _ = PM.router_topk(interop.from_numpy_tree(params), pcfg,
                                interop.from_numpy_tree(x))
-    _, keep = PM._dispatch_indices(idx.reshape(-1), pcfg.moe.n_experts,
-                                   PM._capacity(pcfg, 64))
+    _, keep, _ = PM._dispatch_indices(idx.reshape(-1), pcfg.moe.n_experts,
+                                      PM._capacity(pcfg, 64))
     gone = ~keep.reshape(64, -1).any(-1).numpy()
     assert gone.any() == (capacity_factor < 1)
     assert (got[gone] == 0).all() and (want[gone] == 0).all()
+
+
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.3],
+                         ids=["fits", "drops"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_block_passes_the_fill(dtype, capacity_factor, test_spec,
+                                   monkeypatch):
+    jcfg, pcfg = _cfgs(test_spec, dtype, capacity_factor)
+    params, x = _moe_inputs(jcfg, 64, seed=9)
+    tp, tx = interop.from_numpy_tree(params), interop.from_numpy_tree(x)
+    real = PM.expert_ffn_reference
+    seen = []
+
+    def spy(buf, wg, wu, wd, *, fill=None):
+        seen.append((buf, fill))
+        return real(buf, wg, wu, wd, fill=fill)
+    monkeypatch.setattr(PM, "expert_ffn_reference", spy)
+    py, paux = PM.moe_block(tp, pcfg, tx)
+    (buf, fill), = seen
+    # the fill: each expert's kept slots, which fill its rows 0..fill-1;
+    # the rows past it are zero
+    e, cap = pcfg.moe.n_experts, PM._capacity(pcfg, 64)
+    _, idx, _ = PM.router_topk(tp, pcfg, tx)
+    _, keep, _ = PM._dispatch_indices(idx.reshape(-1), e, cap)
+    want = torch.bincount(idx.reshape(-1)[keep], minlength=e)
+    assert fill.dtype == torch.int32 and torch.equal(fill.long(), want)
+    past = torch.arange(cap)[None, :] >= fill[:, None]
+    assert bool((buf[past] == 0).all()) and bool((buf[~past] != 0).any(-1)
+                                                 .all())
+    assert (capacity_factor < 1) == bool((fill == cap).any())
+    # the same bits without it
+    monkeypatch.setattr(PM, "expert_ffn_reference",
+                        lambda buf, wg, wu, wd, *, fill=None:
+                        real(buf, wg, wu, wd))
+    py0, _ = PM.moe_block(tp, pcfg, tx)
+    assert torch.equal(py, py0)
+    # and JAX's block at the tolerances of test_moe_block_matches_jax
+    jy, jaux = JM.moe_block(jax.tree.map(jnp.asarray, params), jcfg,
+                            jnp.asarray(x))
+    np.testing.assert_allclose(float(paux), float(jaux), rtol=1e-6)
+    got, want_y = py.float().numpy(), np.asarray(jy, np.float32)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want_y, rtol=1e-5, atol=1e-5)
+    else:
+        assert np.abs(got - want_y).max() <= 2.0 ** -6 * np.abs(want_y).max()
 
 
 def _setup(jcfg, rank=4, batch=2, seq=16):
@@ -197,6 +254,7 @@ def test_forced_kernel_branch_equals_plain_path(test_spec, monkeypatch):
 
     def spy(*a, **kw):
         calls.append(kw["backend"])
+        assert kw["fill"].dtype == torch.int32      # the block's fill
         return real(*a, **kw)
     monkeypatch.setattr(PM.ops, "moe_expert_ffn", spy)
     # only the MoE block's branch: attention and the projections keep
