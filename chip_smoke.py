@@ -6,10 +6,12 @@
 Builds every Hopper kernel from the sources in this checkout, holds
 each against its plain PyTorch version on the card and times both, then
 drives the serving path (qwen2-7b), the training path (llama2-7b-
-proxy, one FedAvg round) and DevFT's training entry point (granite-moe-
-1b-a400m and mamba2-2.7b, four stages each) through the port's own
-entry points at full width with random weights, and checks card-vs-CPU
-parity at reduced sizes. Phases, in order:
+proxy, FedAvg rounds), the other federated methods through a sweep, the
+train->serve hand-off (a FedSA round exported, checkpointed and served)
+and DevFT's training entry point (granite-moe-1b-a400m and mamba2-2.7b,
+four stages each) through the port's own entry points at full width
+with random weights, and checks card-vs-CPU parity at reduced sizes.
+Phases, in order:
 
 1. device: card, power limit, versions, kernel build time, ptxas lines
    (registers, spills, performance-loss warnings);
@@ -70,7 +72,31 @@ parity at reduced sizes. Phases, in order:
    f32, loss and
    every LoRA gradient on the card (kernels) vs the CPU (plain), and
    3 local steps of ``make_local_train``;
-8. devft: granite-moe-1b-a400m unreduced (24 layers, d 1024, 16/8
+8. methods: llama2-7b-proxy unreduced, the spec from
+   ``repro_torch.launch.train``'s parser (2 of 20 clients x K=2 local
+   steps of 4 x 1024 tokens, rank-32 f32 LoRA, bf16 params), through
+   ``sweep_cases`` on the card: FLoRA, DoFIT and C2A one round each,
+   ProgFed two stages of one round (capacities 16, 32 from
+   ``make_schedule``), then ``aggregate_seeds``; each round's exact
+   launches (``lora_matmul`` 2 x depth and ``flash_attention`` depth per
+   forward, all on their wgmma kernels unpadded, the rest 0); uplink and
+   downlink 67,108,864 B a client at full depth; C2A's B zero after the
+   round; ProgFed's initial global LoRA bit-identical before
+   ``finalize``; DoFIT's B zero at init and |A_col|^2 equal to the
+   singular values, and its SVD init's wall; ms per local step,
+   tokens/s and peak memory per method;
+9. handoff: one FedSA round (2 of 4 clients; uplink 33,554,432 B a
+   client, A only) through ``run_experiment(export_adapters=True)``, the
+   personalization's launches (4 clients x K=2 steps) and wall; the
+   ``.ckpt`` round trip of ``{"lora": final LoRA}`` on the card (bit-
+   exact; size and times); the registry (``global`` bit-equal to the
+   final LoRA, ``client/0..3`` differing from it) served at full width
+   (8 slots, capacity 1024, 8 requests of 16-512 prompt and 32 generated
+   tokens; ``flash_decode`` once per layer per step, all ``tma_mma``,
+   no training kernel); ``kv_cache.flash_decode(backend="auto")`` at the
+   serve shape: one launch, within the kernel phase's limits of the
+   plain version;
+10. devft: granite-moe-1b-a400m unreduced (24 layers, d 1024, 16/8
    heads of 64, 32 experts top 8 of width 512, vocab 49155), bf16
    params, rank-32 f32 LoRA, through ``repro_torch.launch.train``'s spec
    resolution and ``run_experiment``: DevFT, 4 rounds in 4 stages
@@ -84,7 +110,7 @@ parity at reduced sizes. Phases, in order:
    ``moe_expert_ffn``'s share, round 0's eval loss
    through the kernels vs the plain versions, and the card's DGLG group
    lists against the CPU port's on the same tensors;
-9. devft on mamba2-2.7b unreduced (64 layers, d 2560, d_inner 5120, 80
+11. devft on mamba2-2.7b unreduced (64 layers, d 2560, d_inner 5120, 80
    heads of 64, N 128, G 1, chunk 256, vocab 50280) through the same
    function with the same settings: capacities 8, 16, 32, 64; exact
    launch counts (``ssd_scan`` 600, every call on its ``mma`` kernel,
@@ -98,6 +124,7 @@ card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1808,6 +1835,443 @@ def devft_phase(arch, config_of, want_config, want_caps, per_layer,
     return launches
 
 
+#: llama2-7b-proxy at full width, the shape the train phase checks
+LLAMA_SHAPE = (32, 4096, 32, 32, 128, 11008, 32000, "bfloat16")
+
+
+def _llama_spec(method, n_clients, sample_frac, seed):
+    """The spec ``launch.train``'s own parser resolves for one round of
+    ``method`` on full-width llama2-7b-proxy (2 sampled clients x K=2
+    local steps of 4 x 1024 tokens, rank-32 LoRA, no pretraining)."""
+    from repro_torch.launch import train
+
+    argv = ["--arch", "llama2-7b-proxy", "--full", "--method", method,
+            "--rounds", "1", "--n-clients", str(n_clients),
+            "--sample-frac", str(sample_frac), "--k-local", "2",
+            "--local-batch", "4", "--seq", "1024", "--lora-rank", "32",
+            "--pretrain-steps", "0", "--seed", str(seed)]
+    spec = train.spec_from_args(train.build_parser().parse_args(argv))
+    cfg = spec.build_cfg()
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+           cfg.d_ff, cfg.vocab, cfg.dtype) == LLAMA_SHAPE,
+          f"llama2-7b-proxy config changed: {cfg}")
+    return spec, cfg
+
+
+def _path_kernels():
+    from repro_torch.kernels.flash_attention import flash_attention_bshd
+    from repro_torch.kernels.flash_decode import flash_decode_bhrd
+    from repro_torch.kernels.lora_matmul import lora_matmul_fused
+    from repro_torch.kernels.moe_ffn import moe_expert_ffn_ecd
+    from repro_torch.kernels.ssd_scan import ssd_scan_bshp
+    return (flash_decode_bhrd, lora_matmul_fused, flash_attention_bshd,
+            moe_expert_ffn_ecd, ssd_scan_bshp)
+
+
+def _reset_all_counts():
+    """Zero the launch and variant counts of every kernel wrapper."""
+    import importlib
+    for name in ("flash_attention", "flash_decode", "lora_matmul",
+                 "moe_ffn", "ssd_scan"):
+        importlib.import_module(f"repro_torch.kernels.{name}").reset_counts()
+
+
+@contextlib.contextmanager
+def _patched(*patches):
+    """Set ``owner.name = value`` for each ``(owner, name, value)`` while
+    the block runs, then put back what was there (or nothing)."""
+    saved = [(owner, name, owner.__dict__.get(name, _MISSING))
+             for owner, name, _ in patches]
+    for owner, name, value in patches:
+        setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        for owner, name, value in saved:
+            if value is _MISSING:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, value)
+
+
+_MISSING = object()
+
+
+def _check_training_round(tag, depth, forwards):
+    """The launches since the last reset are one training round's at
+    ``depth`` layers over ``forwards`` forwards (lora_matmul on W_q and
+    W_v, flash_attention once a layer, all on their wgmma kernels,
+    nothing else); then every count goes back to 0."""
+    kernels = _path_kernels()
+    want = {fn.__name__: 0 for fn in kernels}
+    want["lora_matmul_fused"] = 2 * depth * forwards
+    want["flash_attention_bshd"] = depth * forwards
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    check(launches == want, f"{tag}: launches {launches}, want {want}")
+    _check_lora_variants(kernels[1], tag)
+    _check_flash_variant(kernels[2], tag)
+    _reset_all_counts()
+    return launches
+
+
+#: the per-client bytes of rank-32 f32 LoRA on W_q and W_v of full-width
+#: llama2-7b-proxy: 32 layers x 2 targets x (4096*32 + 32*4096) x 4 B
+LLAMA_LORA_BYTES = 67_108_864
+
+
+def methods_phase(seed: int = 0):
+    """FLoRA, DoFIT, C2A and ProgFed on full-width llama2-7b-proxy,
+    through ``sweep_cases`` on the card (one round each, ProgFed two
+    stages of one), then ``aggregate_seeds``."""
+    from repro_torch.core import make_schedule
+    from repro_torch.experiments import aggregate_seeds, sweep_cases
+    from repro_torch.federated import simulator
+    from repro_torch.federated.methods.dofit import DoFIT
+    from repro_torch.federated.methods.progfed import ProgFed
+    from repro_torch.interop import tree_paths
+
+    base, cfg = _llama_spec("fedit", 20, 0.1, seed)
+    n_sample, k = max(1, int(base.n_clients * base.sample_frac)), \
+        base.k_local
+    tokens = k * base.local_batch * base.seq
+    check(32 * 2 * (4096 * 32 + 32 * 4096) * 4 == LLAMA_LORA_BYTES,
+          "LoRA bytes")
+    cases = [{"method": "flora"}, {"method": "dofit"}, {"method": "c2a"},
+             {"method": "progfed", "rounds": 2, "n_stages": 2}]
+
+    # instrumentation, removed at the end: each client's K local steps
+    # timed with a synchronize on both sides; DoFIT's SVD init timed,
+    # with its tree and every SVD's singular values kept; ProgFed's
+    # initial global LoRA kept to compare before finalize
+    runs, svd_s = [], []
+    make_local, svd = simulator.make_local_train, torch.linalg.svd
+    dofit_init, pf_init, pf_finalize = (DoFIT.init_lora,
+                                        ProgFed.init_state,
+                                        ProgFed.finalize)
+
+    def timed_make_local(sub_cfg, **kw):
+        local = make_local(sub_cfg, **kw)
+
+        def run(*a, **kw2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = local(*a, **kw2)
+            torch.cuda.synchronize()
+            runs[-1]["local_s"].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def recording_svd(a, *args, **kw):
+        out = svd(a, *args, **kw)
+        svd_s.append(out[1][:, :base.lora_rank].clone())
+        return out
+
+    def timed_dofit_init(self, params, lora):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = dofit_init(self, params, lora)
+        torch.cuda.synchronize()
+        runs[-1]["init_s"] = time.perf_counter() - t0
+        runs[-1]["init"] = out
+        return out
+
+    def kept_init_state(self, params, lora):
+        runs[-1]["lora0"] = [t.clone() for _, t in tree_paths(lora)]
+        return pf_init(self, params, lora)
+
+    def checked_finalize(self, state):
+        runs[-1]["untouched"] = all(
+            torch.equal(a, b) for a, b in
+            zip(runs[-1]["lora0"], [t for _, t in tree_paths(
+                state["lora"])]))
+        return pf_finalize(self, state)
+
+    def on_run(i, n, spec):
+        _reset_all_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs.append(dict(method=spec.method, local_s=[], logs=[],
+                         t0=time.perf_counter()))
+
+    def on_round(log):
+        run = runs[-1]
+        tag = f"methods {run['method']} round {log.round}"
+        _check_training_round(tag, log.capacity, n_sample * k + 1)
+        run["logs"].append(log)
+        run["peak"] = torch.cuda.max_memory_allocated()
+        print(f"[methods] {run['method']} round {log.round} stage "
+              f"{log.stage} cap {log.capacity} eval loss "
+              f"{log.eval_loss:.4f} acc {log.eval_acc:.4f} up "
+              f"{log.comm_bytes_up} B down {log.comm_bytes_down} B")
+
+    with _patched((simulator, "make_local_train", timed_make_local),
+                  (torch.linalg, "svd", recording_svd),
+                  (DoFIT, "init_lora", timed_dofit_init),
+                  (ProgFed, "init_state", kept_init_state),
+                  (ProgFed, "finalize", checked_finalize)):
+        t0 = time.perf_counter()
+        results = sweep_cases(base, cases, device="cuda",
+                              dtype=torch.bfloat16, progress=on_run,
+                              round_progress=on_round)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    check([r.spec.method for r in results] == [c["method"] for c in cases],
+          f"sweep order {[r.spec.method for r in results]}")
+    by = {r.spec.method: (r, run) for r, run in zip(results, runs)}
+    for method, (res, run) in by.items():
+        check(len(run["logs"]) == len(res.logs) == res.spec.rounds,
+              f"{method}: {len(res.logs)} rounds")
+        for log in res.logs:
+            check(np.isfinite(log.eval_loss) and 0 <= log.eval_acc <= 1,
+                  f"{method} round {log.round}: eval {log.eval_loss}")
+            per_client = LLAMA_LORA_BYTES * log.capacity // cfg.n_layers
+            check(log.comm_bytes_up == log.comm_bytes_down
+                  == n_sample * per_client,
+                  f"{method} round {log.round}: up {log.comm_bytes_up} "
+                  f"down {log.comm_bytes_down}, want {n_sample} x "
+                  f"{per_client}")
+        check(all(bool(torch.isfinite(t).all())
+                  for t in _leaves(res.final_lora)),
+              f"{method}: non-finite final LoRA")
+    # FLoRA ships the full tree (its rank mask changes no byte count)
+    check(by["flora"][0].logs[0].comm_bytes_up
+          == n_sample * LLAMA_LORA_BYTES, "flora uplink")
+    # C2A: B reset after the round
+    for path, t in tree_paths(by["c2a"][0].final_lora):
+        if path[-1] == "b":
+            check(not bool(t.any()), f"c2a: {path} is not zero")
+    # ProgFed: make_schedule's capacities; the initial LoRA untouched
+    sched = make_schedule(cfg.n_layers, 2, 2, base.growth,
+                          base.initial_capacity)
+    pf_res, pf_run = by["progfed"]
+    check([log.capacity for log in pf_res.logs] == sched.capacities
+          == [16, 32], f"progfed capacities "
+          f"{[log.capacity for log in pf_res.logs]} vs {sched.capacities}")
+    check(pf_run.get("untouched") is True,
+          "progfed: the initial global LoRA changed before finalize")
+    # DoFIT: B zero at init, |A_col|^2 the top-r singular values. v is a
+    # unit vector to f32 rounding: over 4096 elements at most n * 2**-24
+    # = 2.4e-4 relative, typically a few 1e-6
+    do_run = by["dofit"][1]
+    init = do_run["init"]["layers"]
+    check(len(svd_s) == 2, f"{len(svd_s)} batched SVDs")
+    worst = 0.0
+    for t, s in zip(init, svd_s):
+        check(not bool(init[t]["b"].any()), f"dofit: {t} B not zero")
+        a = init[t]["a"].double()
+        rel = ((a * a).sum(1) - s.double()).abs() / s.double()
+        worst = max(worst, float(rel.max()))
+    check(worst <= 2.4e-4, f"dofit: |A_col|^2 vs s rel {worst}")
+
+    folded = aggregate_seeds(results)
+    check([f["spec"].method for f in folded] == [c["method"] for c in cases]
+          and all(f["n_seeds"] == 1 for f in folded),
+          "aggregate_seeds grouping")
+    print(f"[methods] llama2-7b-proxy full width, bf16 params, rank-"
+          f"{base.lora_rank} f32 LoRA, {n_sample} clients x {k} local "
+          f"steps x {base.local_batch} x {base.seq} tokens; sweep of "
+          f"{len(results)} runs in {wall:.1f} s")
+    print(f"[methods] dofit: SVD init of {sum(s.shape[0] for s in svd_s)} "
+          f"f32 {cfg.d_model} x {cfg.d_model} weights (W_q, W_v; cuSOLVER "
+          f"gesvd) {do_run['init_s']:.2f} s on the card; B zero; max rel "
+          f"| |A_col|^2 - s | {worst:.3g} (tol 2.4e-4)")
+    for f, (res, run) in zip(folded, zip(results, runs)):
+        t = run["local_s"]
+        step_ms = 1e3 * t[-1] / k
+        print(f"[methods] {res.spec.method}: local steps "
+              f"{', '.join(f'{1e3 * x / k:.1f}' for x in t)} ms per step; "
+              f"{step_ms:.1f} ms per step (last client), "
+              f"{tokens / t[-1]:.0f} tokens/s; peak "
+              f"{run['peak'] / 2**30:.2f} GiB; run wall "
+              f"{res.wall_s:.1f} s; final eval loss "
+              f"{f['metrics']['final_loss']['mean']}; up "
+              f"{sum(log.comm_bytes_up for log in res.logs)} B")
+    print(f"[methods] progfed: capacities {sched.capacities} "
+          f"(make_schedule), initial global LoRA bit-identical before "
+          f"finalize; c2a: every B zero after the round; flora: "
+          f"{LLAMA_LORA_BYTES} B a client up and down")
+    return results
+
+
+def handoff_phase(seed: int = 0):
+    """One FedSA round on full-width llama2-7b-proxy with the train->serve
+    export, the final LoRA's checkpoint round trip on the card, the
+    exported registry served at full width, and the public
+    ``kv_cache.flash_decode`` helper at the serve shape."""
+    from repro_torch import checkpoint
+    from repro_torch.experiments import run_experiment
+    from repro_torch.interop import tree_paths
+    from repro_torch.kernels import ref
+    from repro_torch.serving import ServingEngine, adapters, kv_cache
+
+    spec, cfg = _llama_spec("fedsa", 4, 0.5, seed)
+    n_sample, k = max(1, int(spec.n_clients * spec.sample_frac)), \
+        spec.k_local
+    kernels = _path_kernels()
+    flash_decode_bhrd = kernels[0]
+
+    kept = {}
+    personalize = adapters.personalized_adapters
+
+    def timed_personalize(result, params, data=None, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = personalize(result, params, data, **kw)
+        torch.cuda.synchronize()
+        kept.update(params=params, wall=time.perf_counter() - t0)
+        kept["launches"] = _check_training_round(
+            "handoff personalization", cfg.n_layers, spec.n_clients * k)
+        return out
+
+    def on_round(log):
+        _check_training_round(f"handoff fedsa round {log.round}",
+                              log.capacity, n_sample * k + 1)
+        check(log.comm_bytes_up == n_sample * LLAMA_LORA_BYTES // 2
+              and log.comm_bytes_down == n_sample * LLAMA_LORA_BYTES,
+              f"fedsa bytes up {log.comm_bytes_up} down "
+              f"{log.comm_bytes_down}")
+        print(f"[handoff] fedsa round {log.round}: eval loss "
+              f"{log.eval_loss:.4f}, up {log.comm_bytes_up // n_sample} B "
+              f"a client (A only), down {log.comm_bytes_down // n_sample} "
+              f"B")
+
+    _reset_all_counts()
+    with _patched((adapters, "personalized_adapters", timed_personalize)):
+        t0 = time.perf_counter()
+        result = run_experiment(spec, export_adapters=True, device="cuda",
+                                dtype=torch.bfloat16,
+                                round_progress=on_round)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    reg = result.adapter_registry
+    ids = [f"client/{c}" for c in range(spec.n_clients)]
+    check(sorted(reg.ids()) == sorted(ids + ["global"]),
+          f"registry ids {reg.ids()}")
+    final = [t for _, t in tree_paths(result.final_lora)]
+    check(all(torch.equal(a, b) for a, b in
+              zip(_leaves(reg.get("global")), final)),
+          "registry 'global' is not the final LoRA")
+    for i in ids:
+        check(not all(torch.equal(a, b) for a, b in
+                      zip(_leaves(reg.get(i)), final)),
+              f"{i} equals the global adapter")
+    print(f"[handoff] run_experiment(export_adapters=True): {wall:.1f} s, "
+          f"of which personalization {kept['wall']:.2f} s "
+          f"({spec.n_clients} clients x {k} local steps: "
+          f"{1e3 * kept['wall'] / (spec.n_clients * k):.1f} ms a step); "
+          f"registry {sorted(reg.ids())}")
+
+    # checkpoint round trip of {"lora": final LoRA} on the card
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke")
+    path = os.path.join(root, "handoff.ckpt")
+    tree = {"lora": result.final_lora}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save(path, tree)
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    back = checkpoint.restore(path, tree)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    os.remove(path)
+    for (p, a), (_, b) in zip(tree_paths(tree), tree_paths(back)):
+        check(b.device == a.device and b.dtype == a.dtype
+              and torch.equal(a, b), f"checkpoint {p} not bit-exact")
+    print(f"[handoff] checkpoint {{'lora': final LoRA}}: {size} B, save "
+          f"{save_s * 1e3:.1f} ms, restore to the card {restore_s * 1e3:.1f}"
+          f" ms, bit-exact ({len(final)} leaves)")
+
+    # serve the exported adapters at full width
+    n_slots, capacity, n_req, gen_len = 8, 1024, 8, 32
+    engine = ServingEngine(cfg, kept["params"], adapters=reg,
+                           n_slots=n_slots, kv_capacity=capacity)
+    rng = np.random.default_rng(np.random.SeedSequence((seed, 21)))
+    lens = rng.integers(16, 513, size=n_req)
+    prompts = [rng.integers(0, cfg.vocab, size=n, dtype=np.int32)
+               for n in lens]
+    names = ["global"] + ids
+    _reset_all_counts()
+    t_warm = time.perf_counter()
+    engine.warmup()
+    warm_s = time.perf_counter() - t_warm
+    reqs = [engine.submit(p, max_new_tokens=gen_len,
+                          adapter=names[i % len(names)])
+            for i, p in enumerate(prompts)]
+    steps = 1                                            # the warm-up step
+    t0 = time.perf_counter()
+    while engine.has_work():
+        engine.step()
+        steps += 1
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    check(all(v == 0 for n, v in launches.items()
+              if n != "flash_decode_bhrd"),
+          f"the decode path launched training kernels: {launches}")
+    check(launches["flash_decode_bhrd"] == cfg.n_layers * steps,
+          f"flash_decode launched {launches['flash_decode_bhrd']} times "
+          f"for {steps} steps x {cfg.n_layers} layers")
+    check(dict(flash_decode_bhrd.variants)
+          == {"tma_mma": launches["flash_decode_bhrd"]},
+          f"flash_decode variants {dict(flash_decode_bhrd.variants)}")
+    check(all(r.done for r in reqs), "not every request finished")
+    for r in reqs:
+        check(len(r.tokens) == gen_len
+              and bool(((r.tokens >= 0) & (r.tokens < cfg.vocab)).all()),
+              f"request {r.rid}: tokens {r.tokens}")
+    decode_times = [dt for r in reqs for dt in r.decode_times]
+    ttft = [r.ttft_s for r in reqs]
+    n_new = sum(len(r.generated) for r in reqs)
+    print(f"[handoff] served {n_req} requests on {len(names)} exported "
+          f"adapters, prompts {int(lens.min())}-{int(lens.max())}, gen "
+          f"{gen_len}, {n_slots} slots, capacity {capacity}: engine steps "
+          f"{steps} (warm-up {warm_s:.2f} s), flash_decode launches "
+          f"{launches['flash_decode_bhrd']} = {cfg.n_layers} x {steps}, all "
+          f"tma_mma; lora_matmul and flash_attention 0")
+    print(f"[handoff] TTFT p50 {np.percentile(ttft, 50) * 1e3:.1f} ms | "
+          f"decode step p50 {np.percentile(decode_times, 50) * 1e3:.2f} ms "
+          f"p99 {np.percentile(decode_times, 99) * 1e3:.2f} ms "
+          f"({len(decode_times)} samples) | {n_new / wall:.1f} tok/s")
+    del engine
+
+    # the public helper at the serve shape: one launch, the plain
+    # version's result within the kernel phase's limits
+    h, hd = cfg.n_heads, cfg.hd
+    q = torch.randn(n_slots, 1, h, hd, device="cuda").to(torch.bfloat16)
+    kc = torch.randn(n_slots, capacity, cfg.n_kv_heads, hd,
+                     device="cuda").to(torch.bfloat16)
+    vc = torch.randn_like(kc)
+    valid = torch.from_numpy(np.array(
+        [capacity, 1, 0] + list(rng.integers(1, capacity + 1,
+                                             size=n_slots - 3)),
+        np.int32)).cuda()
+    _reset_all_counts()
+    got = kv_cache.flash_decode(q, kc, vc, kv_valid_len=valid,
+                                backend="auto")
+    plain = kv_cache.flash_decode(q, kc, vc, kv_valid_len=valid)
+    want = ref.flash_decode_ref(q, kc, vc, kv_valid_len=valid)
+    torch.cuda.synchronize()
+    check(flash_decode_bhrd.launches == 1
+          and dict(flash_decode_bhrd.variants) == {"tma_mma": 1},
+          f"kv_cache.flash_decode: {flash_decode_bhrd.launches} launches "
+          f"{dict(flash_decode_bhrd.variants)}")
+    check(torch.equal(plain, want), "backend='reference' is not the plain "
+          "version")
+    live = valid > 0
+    err, row = _row_scaled(got[live], want[live])
+    tol = TOL[torch.bfloat16]
+    check(err <= tol[0] and row <= tol[1]
+          and not bool(got[~live].any()),
+          f"kv_cache.flash_decode: err {err} row-scaled {row}, tol {tol}")
+    print(f"[handoff] kv_cache.flash_decode(backend='auto') at B{n_slots} "
+          f"C{capacity} H{h}/{cfg.n_kv_heads} D{hd} bf16: 1 launch "
+          f"(tma_mma), max abs err {err:.3g}, row-scaled {row:.3g} "
+          f"(tol {tol[0]}, {tol[1]:.3g}); empty slot exact zeros")
+    _reset_all_counts()
+
+
 def _leaves(tree):
     from repro_torch.interop import tree_leaves
     return tree_leaves(tree)
@@ -1850,6 +2314,10 @@ def main() -> int:
     train_launches = train[-1]
     train_parity_phase(*train[:-1])
     del train
+    torch.cuda.empty_cache()
+    methods_phase()
+    torch.cuda.empty_cache()
+    handoff_phase()
     torch.cuda.empty_cache()
     granite_launches = devft_phase(
         "granite-moe-1b-a400m",

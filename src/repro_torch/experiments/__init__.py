@@ -6,8 +6,8 @@ path (the JAX package's ``repro.experiments``).
     spec = ExperimentSpec(method="devft", rounds=8, n_clients=8)
     result = run_experiment(spec)          # -> RunResult
 
-``launch/train.py`` (CLI) routes through :func:`run_experiment`.
-``sweep`` is not ported yet (ROADMAP.md).
+``launch/train.py`` (CLI) routes through :func:`run_experiment`;
+``sweep``/``sweep_cases`` run grids of specs through it.
 """
 from repro_torch.experiments.presets import (  # noqa: F401
     available_presets,
@@ -28,4 +28,11 @@ from repro_torch.experiments.runner import (  # noqa: F401
 from repro_torch.experiments.spec import (  # noqa: F401
     SCHEMA_VERSION,
     ExperimentSpec,
+)
+from repro_torch.experiments.sweep import (  # noqa: F401
+    aggregate_seeds,
+    expand_cases,
+    expand_specs,
+    sweep,
+    sweep_cases,
 )

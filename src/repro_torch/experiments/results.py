@@ -65,6 +65,11 @@ class RunResult:
     # final global adapter tree — in-memory only, never serialized
     final_lora: Any = dataclasses.field(default=None, repr=False,
                                         compare=False)
+    # serving export (run_experiment(..., export_adapters=True)):
+    # an AdapterRegistry of the global + per-client personalized
+    # adapters — in-memory only, never serialized
+    adapter_registry: Any = dataclasses.field(default=None, repr=False,
+                                              compare=False)
 
     def to_dict(self) -> Dict[str, Any]:
         return {

@@ -78,12 +78,10 @@ def run_experiment(spec: ExperimentSpec, *,
     initialized here (the JAX package's ``FederatedRunner`` default,
     f32; the LoRA is f32 whatever it is).
 
-    ``export_adapters=True`` (the train->serve hand-off) is not ported
-    yet and raises."""
-    if export_adapters:
-        raise NotImplementedError(
-            "export_adapters: serving/adapters.py::registry_from_run is "
-            "not ported yet (ROADMAP.md)")
+    ``export_adapters=True`` closes the train->serve loop: the result's
+    ``adapter_registry`` holds the aggregated global adapter plus one
+    personalized adapter per client (a few local steps on each client's
+    own data), ready to pass to ``repro_torch.serving.ServingEngine``."""
     if spec.mesh not in (None, "none"):
         raise NotImplementedError(
             f"mesh={spec.mesh!r}: the port's round engine runs on one "
@@ -102,7 +100,12 @@ def run_experiment(spec: ExperimentSpec, *,
     t0 = time.time()
     logs = runner.run(round_progress)
     wall = time.time() - t0
-    return RunResult(spec=spec, logs=logs, wall_s=wall,
-                     metrics=summarize(logs, wall),
-                     pretrain_loss=pretrain_loss,
-                     final_lora=runner.lora)
+    result = RunResult(spec=spec, logs=logs, wall_s=wall,
+                       metrics=summarize(logs, wall),
+                       pretrain_loss=pretrain_loss,
+                       final_lora=runner.lora)
+    if export_adapters:
+        from repro_torch.serving import registry_from_run
+        result.adapter_registry = registry_from_run(result, runner.params,
+                                                    data)
+    return result

@@ -1,9 +1,7 @@
 """Pluggable federated methods (Strategy API + registry).
 
-Importing this package registers the ported built-in methods (devft,
-fedit); external code adds more with ``@register()`` on a ``Strategy``
-subclass. fedsa, flora, progfed, dofit and c2a are not ported yet
-(ROADMAP.md).
+Importing this package registers the seven built-in methods; external
+code adds more with ``@register()`` on a ``Strategy`` subclass.
 """
 from repro_torch.federated.methods.base import (  # noqa: F401
     AggregateContract,
@@ -21,4 +19,12 @@ from repro_torch.federated.methods.registry import (  # noqa: F401
 )
 
 # built-ins — import order is irrelevant; each module self-registers
-from repro_torch.federated.methods import devft, fedit  # noqa: E402,F401
+from repro_torch.federated.methods import (  # noqa: E402,F401
+    c2a,
+    devft,
+    dofit,
+    fedit,
+    fedsa,
+    flora,
+    progfed,
+)

@@ -12,9 +12,9 @@ output re-run via ``--spec`` reproduces the identical trajectory.
 
 Runs on the card (``--device cuda``, the default: the Hopper kernels)
 unless ``--device cpu`` is given (their plain PyTorch versions). Writes
-``<arch>_<method>_s<seed>.json`` (the round logs) and ``.result.json``
-under ``--out``; the JAX package's msgpack ``.ckpt`` of the final LoRA
-is not written (checkpointing is not ported yet, ROADMAP.md).
+``<arch>_<method>_s<seed>.json`` (the round logs), ``.result.json``
+and ``.ckpt`` (``{"lora": final LoRA}`` in the JAX package's checkpoint
+format, ``repro_torch.checkpoint``) under ``--out``.
 
 Example:
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
@@ -32,6 +32,7 @@ import os
 
 import torch
 
+from repro_torch.checkpoint import save
 from repro_torch.configs import ALL_ARCH_IDS
 from repro_torch.experiments import ExperimentSpec, get_preset, run_experiment
 from repro_torch.federated import (
@@ -188,8 +189,8 @@ def main(argv=None):
     with open(os.path.join(args.out, tagbase + ".json"), "w") as f:
         json.dump([dataclasses.asdict(l) for l in logs], f, indent=1)
     result.save(os.path.join(args.out, tagbase + ".result.json"))
-    print(f"no checkpoint written: {tagbase}.ckpt (the final LoRA) waits "
-          f"for the port of repro.checkpoint (ROADMAP.md)")
+    save(os.path.join(args.out, tagbase + ".ckpt"),
+         {"lora": result.final_lora})
     total_up = sum(l.comm_bytes_up for l in logs)
     print(f"done in {result.wall_s:.0f}s | final loss "
           f"{logs[-1].eval_loss:.4f} acc {logs[-1].eval_acc:.3f} | "

@@ -14,15 +14,16 @@ eviction: ``add`` overwrites the least-recently-used unpinned row;
 adapters in use by active requests are pinned, so an eviction never
 swaps an adapter out from under a running decode.
 
-(The JAX package's ``personalized_adapters`` / ``registry_from_run``
-export a finished training run into a registry; that train-to-serve
-hand-off is not ported yet and is queued in ROADMAP.md, section 1,
-item 4.)
+``registry_from_run`` closes the train->serve loop: it exports a finished
+``run_experiment`` run's adapters — the aggregated global adapter plus
+per-client personalized variants (a few local fine-tuning steps on each
+client's own data, starting from the global adapter) — straight into a
+registry the engine can serve from.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -136,3 +137,64 @@ class AdapterRegistry:
             self._pinned.pop(adapter_id, None)
         else:
             self._pinned[adapter_id] = n
+
+
+def personalized_adapters(result, params, data=None, *,
+                          k_steps: Optional[int] = None):
+    """Per-client personalized adapters for a finished run: from the
+    aggregated global adapter, run ``k_steps`` (default: the run's
+    ``k_local``) of plain local training on each client's OWN data.
+    Returns ``{client_id: lora_tree}``.
+
+    ``params`` is the base-model tree the run fine-tuned (the runner's
+    pretrained base); training runs on its device. ``data`` defaults to
+    the run's federated dataset, rebuilt deterministically from the
+    spec.
+    """
+    from repro_torch.data.synthetic import (client_round_batches,
+                                            make_federated_data)
+    from repro_torch.federated.client import make_local_train
+
+    spec = result.spec
+    if result.final_lora is None:
+        raise ValueError("result carries no final_lora (loaded from JSON? "
+                         "adapters are in-memory only)")
+    cfg = spec.build_cfg()
+    if data is None:
+        data = make_federated_data(cfg.vocab, n_clients=spec.n_clients,
+                                   alpha=spec.alpha, noise=spec.noise,
+                                   seed=spec.seed)
+    k = k_steps or spec.k_local
+    local = make_local_train(cfg)
+    out = {}
+    for c in range(spec.n_clients):
+        batches = client_round_batches(
+            data, [c], k, spec.local_batch, spec.seq,
+            # fresh stream, disjoint from every training round's
+            seed=(spec.seed, spec.rounds + 1 + c))
+        one = {key: v[0] for key, v in batches.items()}
+        lora_c, _ = local(params, result.final_lora, one, spec.lr)
+        out[c] = lora_c
+    return out
+
+
+def registry_from_run(result, params, data=None, *,
+                      personalize: bool = True,
+                      k_steps: Optional[int] = None,
+                      capacity: Optional[int] = None) -> AdapterRegistry:
+    """Export a finished run into a serving registry: the global
+    aggregated adapter under ``"global"`` and (``personalize=True``)
+    one personalized adapter per client under ``"client/<i>"``.
+    """
+    spec = result.spec
+    if result.final_lora is None:
+        raise ValueError("result carries no final_lora (loaded from JSON? "
+                         "adapters are in-memory only)")
+    capacity = capacity or (spec.n_clients + 1 if personalize else 1)
+    reg = AdapterRegistry(result.final_lora, capacity)
+    reg.add("global", result.final_lora)
+    if personalize:
+        for c, lora_c in personalized_adapters(
+                result, params, data, k_steps=k_steps).items():
+            reg.add(f"client/{c}", lora_c)
+    return reg

@@ -10,19 +10,22 @@ per-slot validity windows, and an in-place zero reset of one slot when
 it is recycled to a new request.
 
 Kernel seam: single-token decode attention goes through the
-``flash_decode`` name of ``repro_torch.kernels.dispatch``, re-exported
-here from ``repro_torch.kernels.ops``:
-``flash_decode(q, k, v, *, kv_valid_len, scale=None)`` with
+``flash_decode`` name of ``repro_torch.kernels.dispatch``; the public
+helper ``flash_decode(q, k, v, *, kv_valid_len, scale=None,
+backend="reference")`` below keeps the JAX package's signature, with
 ``q (B, 1, H, hd)``, cache-resident ``k/v (B, C, Hkv, hd)`` and
-``kv_valid_len (B,)``. On the card that is the Hopper kernel.
+``kv_valid_len (B,)``. ``backend="auto"`` (or ``"pallas"``) on a CUDA
+tensor is the Hopper kernel.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.interop import tree_leaves
-from repro_torch.kernels.ops import flash_decode  # noqa: F401  (the seam)
+from repro_torch.kernels import dispatch
 from repro_torch.models import transformer as T
 
 
@@ -78,3 +81,12 @@ def check_capacity(capacity: int, prompt_len: int, max_new: int,
             f"capacity or opt into ring-buffer (sliding-window) decode "
             f"explicitly")
 
+
+def flash_decode(q, k, v, *, kv_valid_len, scale: Optional[float] = None,
+                 backend: str = "reference"):
+    """Single-token ragged-cache attention through the dispatch seam:
+    ``reference`` is the plain version on any device; ``auto`` and
+    ``pallas`` resolve by ``q``'s device (the Hopper kernel on the card,
+    raising where there is none; the plain version on the CPU)."""
+    fd = dispatch.get_kernel("flash_decode", backend, q.device)
+    return fd(q, k, v, kv_valid_len=kv_valid_len, scale=scale)

@@ -124,7 +124,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
+             if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro",
+                                    "msgpack"))
 print(len(names), bad, ",".join(names))
 assert not bad, bad
 """
@@ -142,6 +143,14 @@ PORTED_MODULES = {
     "repro_torch.launch.steps",
     # DevFT on Mamba-2
     "repro_torch.kernels.ssd_scan", "repro_torch.models.mamba2",
+    # the other five methods, sweeps, checkpoints
+    "repro_torch.federated.methods.fedsa",
+    "repro_torch.federated.methods.flora",
+    "repro_torch.federated.methods.progfed",
+    "repro_torch.federated.methods.dofit",
+    "repro_torch.federated.methods.c2a",
+    "repro_torch.experiments.sweep", "repro_torch.checkpoint",
+    "repro_torch.checkpoint.checkpoint",
 }
 
 
