@@ -5,13 +5,14 @@
 
 Builds every Hopper kernel from the sources in this checkout, holds
 each against its plain PyTorch version on the card and times both, then
-drives the serving path (qwen2-7b), the training path (llama2-7b-
-proxy, FedAvg rounds), the other federated methods through a sweep, the
-train->serve hand-off (a FedSA round exported, checkpointed and served)
-and DevFT's training entry point (granite-moe-1b-a400m and mamba2-2.7b,
-four stages each) through the port's own entry points at full width
-with random weights, and checks card-vs-CPU parity at reduced sizes.
-Phases, in order:
+drives the serving path (qwen2-7b, granite-moe-1b-a400m, mamba2-2.7b
+and jamba-v0.1-52b), the training path (llama2-7b-proxy, FedAvg
+rounds), the other federated methods through a sweep, the train->serve
+hand-off (a FedSA round exported, checkpointed and served) and DevFT's
+training entry point (granite-moe-1b-a400m and mamba2-2.7b, four stages
+each, then each run's global adapter served) through the port's own
+entry points at full width with random weights, and checks card-vs-CPU
+parity at reduced sizes. Phases, in order:
 
 1. device: card, power limit, versions, kernel build time, ptxas lines
    (registers, spills, performance-loss warnings);
@@ -41,6 +42,14 @@ Phases, in order:
    ``lora_matmul`` at ranks 32, 65 and 128 and ragged shapes, also vs
    an f64 oracle at the llama shape, with its variant, padding, pre-pass
    time, the other tile width's time and host time per call;
+   at every decode shape a serving phase launches (``SERVED_DECODE``,
+   ``SERVED_MOE``; each serving phase checks that its shapes are
+   there): ``flash_decode`` at qwen2-7b's B8 C1024 H28/4 hd128,
+   granite's B8 C1024 H16/8 hd64, jamba's B8 C1024 H32/8 hd128 and
+   granite's DevFT serve B4 C24 H16/8 hd64 (the last three with two
+   calls bit-equal) and ``moe_expert_ffn`` at granite's E32 C8 d1024
+   ff512 and jamba's E16 C8 d4096 ff14336 with the fill (one 128-row
+   tile holds an expert's 8 rows);
    ``flash_attention`` with the variant of every case, ragged S, windows
    inside and across tiles, GQA, strided views of a fused QKV tensor,
    one-hot V (the output is the probability matrix) and a grid smaller
@@ -50,14 +59,28 @@ Phases, in order:
    and times of kernel, plain version and a PyTorch yardstick the port
    never calls, beside the bound;
 3. serving: qwen2-7b unreduced (28 layers, d 3584, 28/4 heads, vocab
-   152064), bf16, 4 resident rank-8 adapters, 8 slots, 16 requests;
-   ``flash_decode`` must have launched once per layer per engine step,
-   every call on its ``tma_mma`` kernel, and the decode path must launch
-   none of the training kernels;
-4. trace: device busy share over a few profiled engine steps, and
-   ``flash_decode``'s share of it;
-5. parity: reduced qwen2-7b in f32 gives the same greedy tokens on the
-   card (kernel) and on the CPU (plain version);
+   152064), then granite-moe-1b-a400m, mamba2-2.7b and jamba-v0.1-52b
+   at full width (jamba's depth cut to one interleave period, 8 of its
+   32 layers, stacks 3 / 4 / 1; the phase says so), bf16, 4 resident
+   nonzero rank-8 adapters, 8 slots, capacity 1024, 16 requests of 16 to
+   512 (qwen2-7b) or 256 prompt and 32 generated tokens; exact launches
+   per engine step (``flash_decode`` once per attention layer, every
+   call on ``tma_mma``; ``moe_expert_ffn`` once per MoE layer, every
+   call on ``wgmma`` with the fill, unpadded; no training kernel; every
+   kernel 0 on mamba2, whose decoding the JAX package keeps plain);
+   decode p50/p99, TTFT p50, tok/s, peak memory, finite logits;
+4. trace: for each served arch, device busy share over a few profiled
+   engine steps, kernels a step, and each hand kernel's share of it;
+5. parity: reduced qwen2-7b, granite-moe-1b-a400m, mamba2-2.7b and
+   jamba-v0.1-52b in f32 give the same greedy tokens on the card
+   (kernels) and on the CPU (plain versions), with slot recycling;
+5a. prefill vs decode: f32 at full width, mamba2 4 layers (S 300 across
+   two chunks), granite 4 layers and jamba 8 (both at capacity factor
+   E/k, so no token drops): prefill's last-token logits through
+   ``ssd_scan``, ``flash_attention``, ``moe_expert_ffn`` and
+   ``lora_matmul`` (a shared 2-D LoRA; exact launches, every kernel on
+   its f32 variant) against teacher-forced decoding within 1e-3
+   row-scaled;
 6. train: llama2-7b-proxy unreduced (32 layers, d 4096, 32/32 heads,
    ff 11008, vocab 32000), bf16, rank-32 f32 LoRA; after one untimed
    local step, three federated rounds of 2 clients x 2 local AdamW
@@ -115,7 +138,11 @@ Phases, in order:
    function with the same settings: capacities 8, 16, 32, 64; exact
    launch counts (``ssd_scan`` 600, every call on its ``mma`` kernel,
    ``lora_matmul`` 1200 on in_proj and out_proj, the other three 0); the
-   profiled step at capacity 64 with ``ssd_scan``'s share.
+   profiled step at capacity 64 with ``ssd_scan``'s share. After each of
+   the two DevFT phases, its run's ``global`` adapter
+   (``registry_from_run(..., personalize=False)``, bit-equal to the
+   final LoRA) is served on the run's base params, 4 requests of 16 + 8
+   tokens, with the serve phase's launch checks.
 
 Every phase raises on failure, so the script exits non-zero; it also
 exits non-zero, printing no result, without a CUDA card or without the
@@ -215,6 +242,40 @@ def device_phase(build):
 #: long cache) and of the serving phase's own shape
 DECODE_PATH = "path C4096 bf16"
 DECODE_SERVE = "serve C1024 bf16"
+#: the decode shapes of granite-moe-1b-a400m and jamba-v0.1-52b (8 slots,
+#: capacity 1024) and of granite's DevFT run served (4 slots, capacity 24)
+DECODE_GRANITE = "granite B8 C1024 H16/8 hd64 bf16"
+DECODE_JAMBA = "jamba B8 C1024 H32/8 hd128 bf16"
+DECODE_DEVFT = "granite devft-serve B4 C24 H16/8 hd64 bf16"
+#: every flash_decode shape a serving phase launches, bf16: (slots, heads,
+#: kv heads, head dim, capacity) -> the kernel phase's case that holds it
+SERVED_DECODE = {
+    (8, 28, 4, 128, 1024): DECODE_SERVE,
+    (8, 16, 8, 64, 1024): DECODE_GRANITE,
+    (8, 32, 8, 128, 1024): DECODE_JAMBA,
+    (4, 16, 8, 64, 24): DECODE_DEVFT,
+}
+
+
+def _held_cases(cfg, n_slots, capacity, launches):
+    """The kernel-phase cases at the shapes a serving phase launched
+    (``launches`` by wrapper); raises where no case holds one."""
+    from repro_torch.models.moe import _capacity
+
+    held = []
+    if launches["flash_decode_bhrd"]:
+        shape = (n_slots, cfg.n_heads, cfg.n_kv_heads, cfg.hd, capacity)
+        check(shape in SERVED_DECODE, f"flash_decode at (B, H, Hkv, hd, C) "
+              f"{shape}: no kernel-phase case holds this shape")
+        held.append(SERVED_DECODE[shape])
+    if launches["moe_expert_ffn_ecd"]:
+        m = cfg.moe
+        shape = (m.n_experts, _capacity(cfg, n_slots), cfg.d_model,
+                 m.d_ff_expert)
+        check(shape in SERVED_MOE, f"moe_expert_ffn at (E, C, d, ff) "
+              f"{shape}: no kernel-phase case holds this shape")
+        held.append(SERVED_MOE[shape])
+    return held
 
 
 def _kernels_per_call(fn, n: int = 5) -> float:
@@ -251,8 +312,6 @@ def kernel_phase(flash_decode_bhrd, flash_decode_ref, seed: int = 0):
          torch.float32, torch.bfloat16),
         ("path C4096 f32", 8, 28, 4, 128, 128, 4096,
          torch.float32, torch.float32),
-        (DECODE_SERVE, 8, 28, 4, 128, 128, 1024,
-         torch.bfloat16, torch.bfloat16),
         ("mla-reduced f32", 4, 4, 1, 48, 32, 64,
          torch.float32, torch.float32),
         ("mla-reduced bf16", 4, 4, 1, 48, 32, 64,
@@ -266,7 +325,8 @@ def kernel_phase(flash_decode_bhrd, flash_decode_ref, seed: int = 0):
          torch.bfloat16, torch.bfloat16),
         ("rep16 C1000 bf16", 4, 32, 2, 128, 128, 1000,
          torch.bfloat16, torch.bfloat16),
-    ]
+    ] + [(case, b, h, hkv, hd, hd, cap, torch.bfloat16, torch.bfloat16)
+         for (b, h, hkv, hd, cap), case in SERVED_DECODE.items()]
     rows = {}
     for name, b, h, hkv, hd, vd, cap, qdt, kvdt in cases:
         def rand(*shape, dt):
@@ -303,6 +363,11 @@ def kernel_phase(flash_decode_bhrd, flash_decode_ref, seed: int = 0):
             check(torch.equal(out_nan, out),
                   f"{name}: NaN rows past valid changed the output")
             extra = " | NaN rows past valid: output bit-equal to zeros there"
+        if name in (DECODE_GRANITE, DECODE_JAMBA, DECODE_DEVFT):
+            again = flash_decode_bhrd(q, k, v, kv_valid_len=valid)
+            torch.cuda.synchronize()
+            check(torch.equal(again, out), f"{name}: two calls differ")
+            extra = " | two calls bit-equal"
         check(out.dtype == want.dtype and out.shape == want.shape,
               f"{name}: {out.dtype}{tuple(out.shape)} vs plain "
               f"{want.dtype}{tuple(want.shape)}")
@@ -799,52 +864,124 @@ def attention_phase(flash_attention_bshd, attention_bshd_ref,
     return rows
 
 
-def serving_phase(seed: int = 0):
-    """qwen2-7b at full width through the multi-tenant engine."""
+#: the published widths a phase asserts before it builds one of these
+#: archs at full width: arch -> (the config tuple, its value)
+ARCH_CONFIGS = {
+    "qwen2-7b": (
+        lambda c: (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads, c.hd,
+                   c.d_ff, c.vocab, c.dtype),
+        (28, 3584, 28, 4, 128, 18944, 152064, "bfloat16")),
+    "granite-moe-1b-a400m": (
+        lambda c: (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads, c.hd,
+                   c.moe.n_experts, c.moe.top_k, c.moe.d_ff_expert, c.vocab,
+                   c.tie_embeddings, c.dtype),
+        (24, 1024, 16, 8, 64, 32, 8, 512, 49155, True, "bfloat16")),
+    "mamba2-2.7b": (
+        lambda c: (c.n_layers, c.d_model, c.n_heads, c.mamba.expand,
+                   c.mamba.head_dim, c.mamba.d_state, c.mamba.n_groups,
+                   c.mamba.conv_width, c.mamba.chunk, c.vocab, c.dtype),
+        (64, 2560, 0, 2, 64, 128, 1, 4, 256, 50280, "bfloat16")),
+    "jamba-v0.1-52b": (
+        lambda c: (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads, c.hd,
+                   c.moe.n_experts, c.moe.top_k, c.moe.d_ff_expert, c.d_ff,
+                   c.mamba.d_state, c.mamba.head_dim, c.vocab, c.dtype),
+        (32, 4096, 32, 8, 128, 16, 2, 14336, 14336, 16, 64, 65536,
+         "bfloat16")),
+}
+
+
+def _check_config(arch, cfg):
+    """``cfg`` has ``arch``'s published widths (``ARCH_CONFIGS``)."""
+    shape_of, want = ARCH_CONFIGS[arch]
+    check(shape_of(cfg) == want, f"{arch} config changed: {cfg}")
+
+
+#: the serving phases, in order: arch -> (each kernel's launches per
+#: engine step, the depth served (None: the config's), the longest
+#: prompt)
+SERVE_ARCHS = {
+    "qwen2-7b": ({"flash_decode_bhrd": 28}, None, 512),
+    "granite-moe-1b-a400m": (
+        {"flash_decode_bhrd": 24, "moe_expert_ffn_ecd": 24}, None, 256),
+    "mamba2-2.7b": ({}, None, 256),
+    # 8 of 32 layers (one interleave period: stacks 3 / 4 / 1); the full
+    # depth is ~104 GB in bf16
+    "jamba-v0.1-52b": (
+        {"flash_decode_bhrd": 1, "moe_expert_ffn_ecd": 4}, 8, 256),
+}
+
+
+def _check_serve_launches(tag, per_step, steps, dtype=torch.bfloat16):
+    """The decode path's launches since the last reset: each kernel
+    ``per_step[name]`` times a step, every other one none; in bf16
+    ``flash_decode`` on ``tma_mma`` and ``moe_expert_ffn`` on ``wgmma``,
+    in f32 both on ``fma``; ``moe_expert_ffn`` always with a fill,
+    unpadded."""
+    kernels = _path_kernels()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    want = {name: per_step.get(name, 0) * steps for name in launches}
+    check(launches == want, f"{tag}: launches {launches} for {steps} "
+          f"steps, want {want}")
+    bf16 = dtype == torch.bfloat16
+    fd, moe = kernels[0], kernels[3]
+    want_fd, want_moe = ("tma_mma", "wgmma") if bf16 else ("fma", "fma")
+    check(dict(fd.variants) == ({want_fd: fd.launches} if fd.launches
+                                else {}),
+          f"{tag}: flash_decode variants {dict(fd.variants)}")
+    check(set(moe.variants) <= {want_moe}
+          and moe.variants[want_moe] == moe.filled == moe.launches
+          and moe.padded == 0,
+          f"{tag}: moe_expert_ffn variants {dict(moe.variants)}, filled "
+          f"{moe.filled}, padded {moe.padded} of {moe.launches} calls")
+    return launches
+
+
+def serve_arch_phase(arch, seed: int = 0):
+    """``arch`` (a key of ``SERVE_ARCHS``) at full width, bf16, through the
+    multi-tenant engine: 4 resident nonzero rank-8 adapters, 8 slots,
+    KV capacity 1024, 16 requests of 16 to the table's longest prompt
+    and 32 generated tokens; exact launches, decode latency, TTFT,
+    tok/s and peak memory, finite logits, then a few profiled engine
+    steps. Returns the (``flash_decode``, ``moe_expert_ffn``) launches."""
+    import dataclasses
+
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention_bshd
-    from repro_torch.kernels.flash_decode import flash_decode_bhrd
-    from repro_torch.kernels.lora_matmul import lora_matmul_fused
-    from repro_torch.kernels.moe_ffn import moe_expert_ffn_ecd
-    from repro_torch.kernels.ssd_scan import ssd_scan_bshp
     from repro_torch.models import transformer as T
     from repro_torch.serving import AdapterRegistry, ServingEngine
 
-    cfg = get_config("qwen2-7b")
-    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-           cfg.d_ff, cfg.vocab, cfg.dtype)
-          == (28, 3584, 28, 4, 128, 18944, 152064, "bfloat16"),
-          f"qwen2-7b config changed: {cfg}")
+    tag = f"serve {arch}"
+    per_step, depth, longest = SERVE_ARCHS[arch]
+    cfg = get_config(arch)
+    _check_config(arch, cfg)
+    full_depth = cfg.n_layers
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
     n_slots, capacity, n_req, gen_len, n_adapters = 8, 1024, 16, 32, 4
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(seed)
     params = T.init_params(cfg, g)
     registry = AdapterRegistry.for_model(cfg, rank=8, capacity=n_adapters)
     for i in range(n_adapters):
-        lora = T.init_lora(cfg, g, rank=8)
-        for stack in lora.values():
-            for ab in stack.values():
-                ab["b"].normal_(0.0, 0.02, generator=g)   # nonzero adapters
-        registry.add(f"adapter/{i}", lora)
+        registry.add(f"adapter/{i}", _nonzero_lora(T, cfg, g, 8, 0.02))
     engine = ServingEngine(cfg, params, adapters=registry, n_slots=n_slots,
                            kv_capacity=capacity)
     torch.cuda.synchronize()
-    n_param = sum(p.numel() for p in _leaves(params))
-    print(f"[serve] qwen2-7b full width: {n_param / 1e9:.3f} B params "
-          f"({sum(p.numel() * p.element_size() for p in _leaves(params)) / 1e9:.2f} GB "
-          f"{cfg.dtype}), set-up {time.perf_counter() - t0:.1f} s")
+    sizes = T.stack_sizes(params["blocks"])
+    cut = (f"; DEPTH CUT to {depth} of {full_depth} layers (one "
+           f"interleave period, stacks {sizes}), widths unreduced"
+           if depth else "")
+    print(f"[{tag}] full width: "
+          f"{sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B params "
+          f"({sum(p.numel() * p.element_size() for p in _leaves(params)) / 1e9:.2f}"
+          f" GB {cfg.dtype}), set-up {time.perf_counter() - t0:.1f} s{cut}")
 
     rng = np.random.default_rng(np.random.SeedSequence((seed, 2)))
-    lens = rng.integers(16, 513, size=n_req)
+    lens = rng.integers(16, longest + 1, size=n_req)
     prompts = [rng.integers(0, cfg.vocab, size=n, dtype=np.int32)
                for n in lens]
-
-    kernels = (flash_decode_bhrd, lora_matmul_fused, flash_attention_bshd,
-               moe_expert_ffn_ecd, ssd_scan_bshp)
-    for fn in kernels:
-        fn.launches = 0
-    flash_decode_bhrd.variants.clear()
+    _reset_all_counts()
     t_warm = time.perf_counter()
     engine.warmup()
     warm_s = time.perf_counter() - t_warm
@@ -857,35 +994,25 @@ def serving_phase(seed: int = 0):
         engine.step()
         steps += 1
     wall = time.perf_counter() - t0
-    launches = flash_decode_bhrd.launches
-    check(all(fn.launches == 0 for fn in kernels[1:]),
-          f"the decode path launched training kernels: "
-          f"{ {fn.__name__: fn.launches for fn in kernels[1:]} }")
-
-    check(all(r.done for r in reqs), "not every request finished")
+    launches = _check_serve_launches(tag, per_step, steps)
+    check(all(r.done for r in reqs), f"{tag}: not every request finished")
     for r in reqs:
-        toks = r.tokens
-        check(len(toks) == gen_len, f"request {r.rid}: {len(toks)} tokens")
-        check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
-              f"request {r.rid}: token outside the vocab {toks}")
-    check(launches == cfg.n_layers * steps,
-          f"flash_decode launched {launches} times for {steps} steps x "
-          f"{cfg.n_layers} layers")
-    check(dict(flash_decode_bhrd.variants) == {"tma_mma": launches},
-          f"flash_decode variants {dict(flash_decode_bhrd.variants)} of "
-          f"{launches} calls")
-
+        check(len(r.tokens) == gen_len
+              and bool(((r.tokens >= 0) & (r.tokens < cfg.vocab)).all()),
+              f"{tag}: request {r.rid} tokens {r.tokens}")
     decode_times = [dt for r in reqs for dt in r.decode_times]
     ttft = [r.ttft_s for r in reqs]
     n_new = sum(len(r.generated) for r in reqs)
     peak = torch.cuda.max_memory_allocated()
-    print(f"[serve] {n_req} requests, prompts {int(lens.min())}-"
+    per = ", ".join(f"{k} {v} = {per_step[k]} x {steps}"
+                    for k, v in launches.items() if v) or "every kernel 0"
+    held = _held_cases(cfg, n_slots, capacity, launches)
+    print(f"[{tag}] {n_req} requests, prompts {int(lens.min())}-"
           f"{int(lens.max())} (sum {int(lens.sum())}), gen {gen_len}, "
-          f"{n_slots} slots, capacity {capacity}, {n_adapters} adapters")
-    print(f"[serve] engine steps {steps} (warm-up {warm_s:.2f} s), "
-          f"flash_decode launches {launches} = {cfg.n_layers} x {steps}, "
-          f"all on the tma_mma kernel")
-    print(f"[serve] TTFT p50 {np.percentile(ttft, 50) * 1e3:.1f} ms | "
+          f"{n_slots} slots, capacity {capacity}, {n_adapters} adapters; "
+          f"engine steps {steps} (warm-up {warm_s:.2f} s); launches: {per}; "
+          f"shapes held in the kernel phase by {held or 'none'}")
+    print(f"[{tag}] TTFT p50 {np.percentile(ttft, 50) * 1e3:.1f} ms | "
           f"decode step p50 {np.percentile(decode_times, 50) * 1e3:.2f} ms "
           f"p99 {np.percentile(decode_times, 99) * 1e3:.2f} ms "
           f"({len(decode_times)} samples) | engine step mean "
@@ -899,25 +1026,24 @@ def serving_phase(seed: int = 0):
     with torch.no_grad():
         logits, _ = T.decode_step(cfg, params, None, tok.cuda(), cache)
     check(bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
-          "non-finite logits")
-    return engine, prompts, steps, launches
+          f"{tag}: non-finite logits")
+    del cache, logits
 
-
-def trace_phase(engine, prompts):
-    """Device busy share over a few profiled steps of the same engine."""
-    for i, p in enumerate(prompts[:engine.scheduler.n_slots]):
+    for i, p in enumerate(prompts[:n_slots]):
         engine.submit(p[:16], max_new_tokens=8,
-                      adapter=f"adapter/{i % len(engine.adapters)}")
+                      adapter=f"adapter/{i % n_adapters}")
     for _ in range(4):                                   # into steady state
         engine.step()
     n = 5
 
-    def steps():
+    def some_steps():
         for _ in range(n):
             engine.step()
-    _profile("trace", f"{n} profiled engine steps", steps, n)
+    _profile(tag, f"{n} profiled engine steps", some_steps, n)
     while engine.has_work():
         engine.step()
+    _reset_all_counts()
+    return launches["flash_decode_bhrd"], launches["moe_expert_ffn_ecd"]
 
 
 def _profile(tag, what, fn, n=1):
@@ -973,9 +1099,16 @@ def _profile(tag, what, fn, n=1):
                   f"{100 * t / busy_us:.1f}% of device busy")
 
 
+#: the reduced archs whose greedy tokens the card and the CPU must agree on
+PARITY_ARCHS = ("qwen2-7b", "granite-moe-1b-a400m", "mamba2-2.7b",
+                "jamba-v0.1-52b")
+
+
 def parity_phase(seed: int = 0):
-    """Reduced qwen2-7b, f32: the card (kernel) and the CPU (plain
-    version) give the same greedy tokens."""
+    """Reduced qwen2-7b, granite-moe-1b-a400m, mamba2-2.7b and
+    jamba-v0.1-52b in f32: the card (kernels) and the CPU (plain
+    versions) give the same greedy tokens through the multi-tenant
+    engine, with slot recycling."""
     import dataclasses
 
     from repro_torch.configs import get_config, reduce_config
@@ -983,37 +1116,141 @@ def parity_phase(seed: int = 0):
     from repro_torch.models import transformer as T
     from repro_torch.serving import AdapterRegistry, ServingEngine
 
-    cfg = dataclasses.replace(reduce_config(get_config("qwen2-7b")),
-                              dtype="float32")
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    params = T.init_params(cfg, g)
-    adapters = []
-    for _ in range(2):
-        lora = T.init_lora(cfg, g, rank=4)
-        for stack in lora.values():
-            for ab in stack.values():
-                ab["b"].normal_(0.0, 0.05, generator=g)
-        adapters.append(lora)
-    rng = np.random.default_rng(np.random.SeedSequence((seed, 3)))
-    prompts = [rng.integers(0, cfg.vocab, size=n, dtype=np.int32)
-               for n in (5, 9, 12, 7)]
-    out = {}
-    for dev in ("cuda", "cpu"):
-        p = tree_map(lambda t, d=dev: t.to(d), params)
-        reg = AdapterRegistry(tree_map(lambda t, d=dev: t.to(d), adapters[0]),
-                              capacity=2)
-        for i, lora in enumerate(adapters):
-            reg.add(f"a{i}", tree_map(lambda t, d=dev: t.to(d), lora))
-        eng = ServingEngine(cfg, p, adapters=reg, n_slots=2, kv_capacity=24)
-        reqs = [eng.submit(pr, max_new_tokens=8, adapter=f"a{i % 2}")
-                for i, pr in enumerate(prompts)]
-        while eng.has_work():
-            eng.step()
-        out[dev] = np.stack([r.tokens for r in reqs])
-    check(np.array_equal(out["cuda"], out["cpu"]),
-          f"greedy tokens differ:\ncuda {out['cuda']}\ncpu  {out['cpu']}")
-    print(f"[parity] reduced qwen2-7b f32, 4 requests x 8 tokens, 2 "
-          f"adapters: cuda == cpu {out['cuda'][0].tolist()} ...")
+    for arch in PARITY_ARCHS:
+        cfg = dataclasses.replace(reduce_config(get_config(arch)),
+                                  dtype="float32")
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        params = T.init_params(cfg, g)
+        adapters = [_nonzero_lora(T, cfg, g, 4, 0.05) for _ in range(2)]
+        rng = np.random.default_rng(np.random.SeedSequence((seed, 3)))
+        prompts = [rng.integers(0, cfg.vocab, size=n, dtype=np.int32)
+                   for n in (5, 9, 12, 7)]
+        out = {}
+        _reset_all_counts()
+        for dev in ("cuda", "cpu"):
+            p = tree_map(lambda t, d=dev: t.to(d), params)
+            reg = AdapterRegistry(
+                tree_map(lambda t, d=dev: t.to(d), adapters[0]), capacity=2)
+            for i, lora in enumerate(adapters):
+                reg.add(f"a{i}", tree_map(lambda t, d=dev: t.to(d), lora))
+            eng = ServingEngine(cfg, p, adapters=reg, n_slots=2,
+                                kv_capacity=24)
+            reqs = [eng.submit(pr, max_new_tokens=8, adapter=f"a{i % 2}")
+                    for i, pr in enumerate(prompts)]
+            while eng.has_work():
+                eng.step()
+            out[dev] = np.stack([r.tokens for r in reqs])
+        launches = {fn.__name__: fn.launches for fn in _path_kernels()
+                    if fn.launches}
+        check(np.array_equal(out["cuda"], out["cpu"]),
+              f"{arch}: greedy tokens differ:\ncuda {out['cuda']}\ncpu  "
+              f"{out['cpu']}")
+        print(f"[parity] reduced {arch} f32, 4 requests x 8 tokens, 2 "
+              f"adapters, 2 slots: cuda == cpu {out['cuda'][0].tolist()} "
+              f"...; card launches {launches or 'none'}")
+    _reset_all_counts()
+
+
+#: prefill_vs_decode limit on the row-scaled error of the last-token
+#: logits, max |prefill - decode| / max |decode| per row, f32: the JAX
+#: package's limit for its SSD kernel against the sequential oracle
+#: (the chunked form takes exp of differences of cumulative sums, exact
+#: only to ~2.4e-4 at a = -16), which the Mamba layers carry to the
+#: logits; the kernels' and cuBLAS's summation orders move the rest by
+#: far less
+PVD_TOL = 1e-3
+#: the variant each kernel plans in f32, the only one prefill_vs_decode
+#: may launch
+PVD_VARIANTS = {"flash_decode_bhrd": "fma", "lora_matmul_fused": "fma_f32",
+                "flash_attention_bshd": "fma_f32",
+                "moe_expert_ffn_ecd": "fma", "ssd_scan_bshp": "fma"}
+#: arch -> (layers, batch, prefill length); full width, f32
+PVD_CASES = {
+    "mamba2-2.7b": (4, 2, 300),
+    "granite-moe-1b-a400m": (4, 2, 64),
+    "jamba-v0.1-52b": (8, 2, 48),
+}
+
+
+def prefill_vs_decode_phase(seed: int = 0):
+    """f32 at full width, depth cut: prefill's last-token logits through
+    the kernels (``ssd_scan``, ``flash_attention``, ``moe_expert_ffn``,
+    and ``lora_matmul`` with a shared 2-D LoRA) against teacher-forced
+    decoding of the same tokens (``flash_decode`` and ``moe_expert_ffn``
+    at capacity 8; the Mamba recurrence and the projections plain). The
+    MoE archs run at capacity factor E/k, so neither path drops a
+    token. Every kernel runs its f32 variant (``PVD_VARIANTS``), so for
+    mamba2 this holds the recurrence against ``ssd_scan``'s ``fma``
+    variant; the bf16 ``mma`` variant is held by the ssd phase."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    for arch, (layers, b, s) in PVD_CASES.items():
+        tag = f"prefill_vs_decode {arch}"
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                                  dtype="float32")
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+        torch.cuda.empty_cache()
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        params = T.init_params(cfg, g)
+        lora = _nonzero_lora(T, cfg, g, 8, 0.02)
+        kinds = T.stack_kinds(cfg)
+        n_of = {kind: 0 for kind in T.PORTED_KINDS}
+        for name, _ in T.execution_order(cfg):
+            n_of[kinds[name]] += 1
+        n_mamba = sum(v for k, v in n_of.items() if k.startswith("mamba"))
+        n_attn = sum(v for k, v in n_of.items() if k.startswith("gqa"))
+        n_moe = sum(v for k, v in n_of.items() if k.endswith("moe"))
+        rng = np.random.default_rng(np.random.SeedSequence((seed, 23)))
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).cuda()
+        _reset_all_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want = T.prefill(cfg, params, lora, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pre = {fn.__name__: fn.launches for fn in _path_kernels()}
+        check(pre == {"flash_decode_bhrd": 0,
+                      "lora_matmul_fused": 2 * (n_mamba + n_attn),
+                      "flash_attention_bshd": n_attn,
+                      "moe_expert_ffn_ecd": n_moe,
+                      "ssd_scan_bshp": n_mamba},
+              f"{tag}: prefill launches {pre}")
+        variants = {fn.__name__: dict(fn.variants) for fn in _path_kernels()}
+        check(variants == {k: {PVD_VARIANTS[k]: n} if n else {}
+                           for k, n in pre.items()},
+              f"{tag}: prefill variants {variants}")
+        _reset_all_counts()
+        cache = T.init_cache(cfg, b, s, device="cuda")
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for i in range(s):
+                got, cache = T.decode_step(cfg, params, lora,
+                                           tokens[:, i:i + 1], cache)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        _check_serve_launches(tag, {"flash_decode_bhrd": n_attn,
+                                    "moe_expert_ffn_ecd": n_moe}, s,
+                              torch.float32)
+        live = slice(0, cfg.vocab)
+        err, row = _row_scaled(got[..., live], want[..., live])
+        check(bool(torch.isfinite(want[..., live]).all())
+              and row <= PVD_TOL,
+              f"{tag}: row-scaled error {row} > {PVD_TOL} (abs {err})")
+        print(f"[pvd] {arch} f32 full width, {layers} layers ({n_mamba} "
+              f"Mamba, {n_attn} attention, {n_moe} MoE), B{b} S{s}: prefill "
+              f"{prefill_s * 1e3:.1f} ms through the kernels {pre}, all on "
+              f"their f32 variants; "
+              f"teacher-forced decode {s} steps {decode_s:.2f} s; last-token "
+              f"logits max abs err {err:.3g}, row-scaled {row:.3g} (tol "
+              f"{PVD_TOL})")
+        del params, lora, cache
+    _reset_all_counts()
+    torch.cuda.empty_cache()
 
 
 def _nonzero_lora(T, cfg, gen, rank, std):
@@ -1217,6 +1454,14 @@ MOE_ROW_TOL = {torch.float32: (1e-5, 1e-5),
 #: the moe_expert_ffn case of the ``kernels`` line (one MoE layer of the
 #: granite-moe-1b-a400m training step)
 MOE_PATH = "path E32 C1280 d1024 ff512 bf16"
+#: one MoE layer of a decode step at 8 slots (capacity 8): granite-moe-
+#: 1b-a400m and jamba-v0.1-52b
+MOE_DECODE_GRANITE = "granite decode E32 C8 d1024 ff512 bf16"
+MOE_DECODE_JAMBA = "jamba decode E16 C8 d4096 ff14336 bf16"
+#: every moe_expert_ffn shape a serving phase launches, bf16: (experts,
+#: capacity, d, ff) -> the kernel phase's case that holds it
+SERVED_MOE = {(32, 8, 1024, 512): MOE_DECODE_GRANITE,
+              (16, 8, 4096, 14336): MOE_DECODE_JAMBA}
 
 
 def _check_moe_variant(moe_expert_ffn_ecd, tag):
@@ -1261,7 +1506,12 @@ def moe_phase(moe_expert_ffn_ecd, moe_expert_ffn_ref, seed: int = 0):
          "wgmma"),
         ("ragged E3 C77 d1001 ff91 f32", 3, 77, 1001, 91, torch.float32,
          True, "fma"),
+        # decode: one 128-row tile an expert holds the 8 rows; its TMA
+        # boxes run past C (rows load as zeros, stores are clipped)
+        (MOE_DECODE_GRANITE, 32, 8, 1024, 512, bf16, True, "wgmma"),
+        (MOE_DECODE_JAMBA, 16, 8, 4096, 14336, bf16, True, "wgmma"),
     ]
+    gen = torch.Generator(device=dev).manual_seed(seed)
 
     def bmm_ffn(buf, wg, wu, wd):
         h = torch.nn.functional.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
@@ -1270,6 +1520,9 @@ def moe_phase(moe_expert_ffn_ecd, moe_expert_ffn_ref, seed: int = 0):
     rows = {}
     for name, e, c, d, ff, dt, empty, want_variant in cases:
         def rand(*shape, std=1.0):
+            if math.prod(shape) > 1 << 26:     # jamba's experts: on the card
+                return torch.randn(shape, generator=gen, device=dev
+                                   ).mul_(std).to(dt)
             a = rng.standard_normal(shape, dtype=np.float32) * std
             return torch.from_numpy(a).to(dev).to(dt)
         buf = rand(e, c, d)
@@ -1623,14 +1876,15 @@ def ssd_phase(ssd_scan_bshp, ssd_chunked_ref, ssd_oracle, seed: int = 0):
     return rows
 
 
-def devft_phase(arch, config_of, want_config, want_caps, per_layer,
-                want_forward_layers, seed: int = 0):
+def devft_phase(arch, want_caps, per_layer, want_forward_layers,
+                seed: int = 0):
     """DevFT on ``arch`` at full width through the training entry point
     (the CLI's own spec resolution, then ``run_experiment``): four
-    stages of one round each, capacities ``want_caps``. ``config_of(cfg)``
-    must equal ``want_config``; ``per_layer`` maps each wrapper to its
+    stages of one round each, capacities ``want_caps``, on the widths
+    ``ARCH_CONFIGS`` holds; ``per_layer`` maps each wrapper to its
     launches per layer per forward (the rest must launch none), and the
-    run makes ``want_forward_layers`` layer-forwards in all."""
+    run makes ``want_forward_layers`` layer-forwards in all. Returns
+    (launches by wrapper, the ``RunResult``, the run's base params)."""
     import dataclasses
 
     from repro_torch.core import make_groups, similarity_matrix
@@ -1661,14 +1915,14 @@ def devft_phase(arch, config_of, want_config, want_caps, per_layer,
             "--seed", str(seed)]
     spec = train.spec_from_args(train.build_parser().parse_args(argv))
     cfg = spec.build_cfg()
-    check(config_of(cfg) == want_config, f"{arch} config changed: {cfg}")
+    _check_config(arch, cfg)
     k, b, s = spec.k_local, spec.local_batch, spec.seq
 
     # instrumentation, removed at the end: each stage's submodel build
     # (DGLG + DBLF on the card) and each client's K local steps, timed
     # with a synchronize on both sides; round 0's eval inputs, kept for
     # the reference-backend check
-    stages, evals = [], []
+    stages, evals, base = [], [], {}
     on_stage, make_local, ev = (DevFT.on_stage, simulator.make_local_train,
                                 simulator.FederatedRunner._eval)
 
@@ -1704,6 +1958,7 @@ def devft_phase(arch, config_of, want_config, want_caps, per_layer,
         out = ev(self, cfg_, params, lora, batch)
         if not evals:
             evals.append((cfg_, params, lora, batch, out))
+            base["params"] = self.params
         return out
 
     kernels = (flash_decode_bhrd, lora_matmul_fused, flash_attention_bshd,
@@ -1832,7 +2087,56 @@ def devft_phase(arch, config_of, want_config, want_caps, per_layer,
               f"eigen-gap {gap:.3g} (eigenvalues {ev_[st['capacity'] - 1]:.5g}"
               f" and {ev_[st['capacity']]:.5g}, largest {ev_[-1]:.5g})")
     del stages, evals, full
-    return launches
+    return launches, result, base["params"]
+
+
+def devft_serve_phase(arch, result, params, per_step):
+    """The train->serve hand-off on a DevFT run at full width: its final
+    ``global`` adapter (``registry_from_run(..., personalize=False)``)
+    served on the run's base params, 4 requests of 16 prompt and 8
+    generated tokens, with the serving phases' launch checks."""
+    from repro_torch.interop import tree_paths
+    from repro_torch.serving import ServingEngine, registry_from_run
+
+    tag = f"devft serve {arch}"
+    cfg = result.spec.build_cfg()
+    reg = registry_from_run(result, params, personalize=False)
+    check(reg.ids() == ["global"], f"{tag}: registry ids {reg.ids()}")
+    check(all(torch.equal(a, b) for a, b in zip(
+        _leaves(reg.get("global")),
+        [t for _, t in tree_paths(result.final_lora)])),
+        f"{tag}: 'global' is not the final LoRA")
+    n_slots, capacity = 4, 24
+    engine = ServingEngine(cfg, params, adapters=reg, n_slots=n_slots,
+                           kv_capacity=capacity)
+    rng = np.random.default_rng(np.random.SeedSequence((0, 24)))
+    prompts = [rng.integers(0, cfg.vocab, size=16, dtype=np.int32)
+               for _ in range(4)]
+    _reset_all_counts()
+    engine.warmup()
+    reqs = [engine.submit(p, max_new_tokens=8, adapter="global")
+            for p in prompts]
+    steps = 1                                            # the warm-up step
+    t0 = time.perf_counter()
+    while engine.has_work():
+        engine.step()
+        steps += 1
+    wall = time.perf_counter() - t0
+    launches = _check_serve_launches(tag, per_step, steps)
+    held = _held_cases(cfg, n_slots, capacity, launches)
+    for r in reqs:
+        check(r.done and len(r.tokens) == 8
+              and bool(((r.tokens >= 0) & (r.tokens < cfg.vocab)).all()),
+              f"{tag}: request {r.rid} tokens {r.tokens}")
+    decode_times = [dt for r in reqs for dt in r.decode_times]
+    print(f"[{tag}] the run's 'global' adapter (bit-equal to its final "
+          f"LoRA) on its base params: 4 requests of 16 + 8 tokens in "
+          f"{steps} engine steps, {wall:.2f} s; decode step p50 "
+          f"{np.percentile(decode_times, 50) * 1e3:.2f} ms; launches "
+          f"{ {k: v for k, v in launches.items() if v} or 'none'} at "
+          f"shapes held in the kernel phase by {held or 'none'}; first "
+          f"request {reqs[0].tokens.tolist()}")
+    _reset_all_counts()
 
 
 #: llama2-7b-proxy at full width, the shape the train phase checks
@@ -2108,8 +2412,7 @@ def handoff_phase(seed: int = 0):
     spec, cfg = _llama_spec("fedsa", 4, 0.5, seed)
     n_sample, k = max(1, int(spec.n_clients * spec.sample_frac)), \
         spec.k_local
-    kernels = _path_kernels()
-    flash_decode_bhrd = kernels[0]
+    flash_decode_bhrd = _path_kernels()[0]
 
     kept = {}
     personalize = adapters.personalized_adapters
@@ -2206,16 +2509,8 @@ def handoff_phase(seed: int = 0):
         engine.step()
         steps += 1
     wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in kernels}
-    check(all(v == 0 for n, v in launches.items()
-              if n != "flash_decode_bhrd"),
-          f"the decode path launched training kernels: {launches}")
-    check(launches["flash_decode_bhrd"] == cfg.n_layers * steps,
-          f"flash_decode launched {launches['flash_decode_bhrd']} times "
-          f"for {steps} steps x {cfg.n_layers} layers")
-    check(dict(flash_decode_bhrd.variants)
-          == {"tma_mma": launches["flash_decode_bhrd"]},
-          f"flash_decode variants {dict(flash_decode_bhrd.variants)}")
+    launches = _check_serve_launches(
+        "handoff serve", {"flash_decode_bhrd": cfg.n_layers}, steps)
     check(all(r.done for r in reqs), "not every request finished")
     for r in reqs:
         check(len(r.tokens) == gen_len
@@ -2305,11 +2600,10 @@ def main() -> int:
     moe_rows = moe_phase(moe_expert_ffn_ecd, ref.moe_expert_ffn_ref)
     ssd_rows = ssd_phase(ssd_scan_bshp, ref.ssd_scan_bshp_chunked_ref,
                          ref.ssd_scan_bshp_ref)
-    engine, prompts, steps, launches = serving_phase()
-    trace_phase(engine, prompts)
-    del engine
+    serve_launches = {arch: serve_arch_phase(arch) for arch in SERVE_ARCHS}
     torch.cuda.empty_cache()
     parity_phase()
+    prefill_vs_decode_phase()
     train = train_phase()
     train_launches = train[-1]
     train_parity_phase(*train[:-1])
@@ -2319,30 +2613,29 @@ def main() -> int:
     torch.cuda.empty_cache()
     handoff_phase()
     torch.cuda.empty_cache()
-    granite_launches = devft_phase(
-        "granite-moe-1b-a400m",
-        lambda c: (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads, c.hd,
-                   c.moe.n_experts, c.moe.top_k, c.moe.d_ff_expert, c.vocab,
-                   c.tie_embeddings),
-        (24, 1024, 16, 8, 64, 32, 8, 512, 49155, True), [3, 6, 12, 24],
+    granite_launches, result, base = devft_phase(
+        "granite-moe-1b-a400m", [3, 6, 12, 24],
         {"lora_matmul_fused": 2, "flash_attention_bshd": 1,
          "moe_expert_ffn_ecd": 1}, 225)
+    devft_serve_phase("granite-moe-1b-a400m", result, base,
+                      SERVE_ARCHS["granite-moe-1b-a400m"][0])
+    del result, base
     torch.cuda.empty_cache()
-    from repro_torch.models import mamba2
-    mamba_launches = devft_phase(
-        "mamba2-2.7b",
-        lambda c: (c.n_layers, c.d_model, mamba2.d_inner(c),
-                   mamba2.n_heads(c), c.mamba.head_dim, c.mamba.d_state,
-                   c.mamba.n_groups, c.mamba.chunk, c.vocab),
-        (64, 2560, 5120, 80, 64, 128, 1, 256, 50280), [8, 16, 32, 64],
+    mamba_launches, result, base = devft_phase(
+        "mamba2-2.7b", [8, 16, 32, 64],
         {"lora_matmul_fused": 2, "ssd_scan_bshp": 1}, 600)
+    devft_serve_phase("mamba2-2.7b", result, base,
+                      SERVE_ARCHS["mamba2-2.7b"][0])
+    del result, base
     torch.cuda.empty_cache()
 
     kernels = {"kernels": [
         dict(name="flash_decode", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_decode.cu",
              replaces="src/repro/kernels/flash_decode.py:135",
-             launches=launches, **rows[DECODE_PATH]),
+             launches=serve_launches["qwen2-7b"][0], **rows[DECODE_PATH],
+             serve_launches={a: n[0] for a, n in serve_launches.items()
+                             if n[0]}),
         dict(name="lora_matmul", route="cuda",
              source="src/repro_torch/kernels/csrc/lora_matmul.cu",
              replaces="src/repro/kernels/lora_matmul.py:94",
@@ -2357,7 +2650,9 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/moe_ffn.cu",
              replaces="src/repro/kernels/moe_ffn.py:92",
              launches=granite_launches["moe_expert_ffn_ecd"],
-             **moe_rows[MOE_PATH]),
+             **moe_rows[MOE_PATH],
+             serve_launches={a: n[1] for a, n in serve_launches.items()
+                             if n[1]}),
         dict(name="ssd_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:105",

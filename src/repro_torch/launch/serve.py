@@ -11,11 +11,17 @@ where the kernels are built, is excluded; prefill is counted apart).
 checked against; it is kept as the reference oracle and for single-
 batch use.
 
+Every arch whose blocks decode in the port serves, reduced as the JAX
+package's CLI does: the dense ones, granite-moe-1b-a400m (MoE),
+mamba2-2.7b (Mamba-2) and jamba-v0.1-52b (the hybrid order).
+
 Examples (``--device cpu`` runs the plain PyTorch versions):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
         --batch 4 --prompt-len 16 --gen 16 --requests 8 --n-adapters 3
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --batch 2 --prompt-len 8 --gen 8 --merge-lora
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch jamba-v0.1-52b --batch 2 --prompt-len 8 --gen 8 --n-adapters 2
 """
 from __future__ import annotations
 

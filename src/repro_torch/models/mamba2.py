@@ -1,5 +1,5 @@
 """Mamba-2 block (SSD, state-space duality, arXiv:2405.21060): the JAX
-package's ``repro.models.mamba2`` for training and prefill.
+package's ``repro.models.mamba2`` for training, prefill and decoding.
 
 The forward over a sequence has two branches, as in the JAX package:
 
@@ -13,8 +13,13 @@ The two differ for ``S < chunk`` in their rounding only. The in/out
 projections go through ``layers._proj``, so their LoRA adapters share
 the ``lora_matmul`` kernel and the alpha/r scaling rule.
 
-Decoding (``init_mamba_cache``, ``mamba_decode``) is not ported yet
-(ROADMAP.md).
+Decoding is the O(1) recurrent step: ``init_mamba_cache`` holds the
+last ``conv_width - 1`` inputs of the causal conv in the model dtype and
+the SSM state in f32; ``mamba_decode`` advances both **in place** (the
+JAX package returns updated copies). As in the JAX package it stays on
+the plain path whatever ``cfg.kernel_backend`` says: its projections
+take no backend, so a shared 2-D adapter never reaches ``lora_matmul``
+and no kernel runs in a Mamba decode step.
 """
 from __future__ import annotations
 
@@ -173,3 +178,60 @@ def mamba_forward(params: dict, cfg, u: torch.Tensor, *,
     y = rms_norm(y, params["out_norm"], cfg.norm_eps)
     return _proj(y, params["out_proj"],
                  lora=lora.get("out_proj") if lora else None, backend=backend)
+
+
+def init_mamba_cache(cfg, batch: int, dtype, device, lead=()) -> dict:
+    """``conv`` (…, B, conv_width - 1, conv_dim) in ``dtype`` and ``ssm``
+    (…, B, H, P, N), always f32; ``lead`` prepends stack axes."""
+    mb = cfg.mamba
+    return {
+        "conv": torch.zeros((*lead, batch, mb.conv_width - 1, conv_dim(cfg)),
+                            dtype=dtype, device=device),
+        "ssm": torch.zeros((*lead, batch, n_heads(cfg), mb.head_dim,
+                            mb.d_state), dtype=torch.float32, device=device),
+    }
+
+
+def mamba_decode(params: dict, cfg, u: torch.Tensor, cache: dict, *,
+                 lora=None):
+    """Single-token recurrent step. u: (B, 1, d_model). Writes the new
+    conv window and SSM state into ``cache``'s own tensors (``copy_``,
+    so a view into a stacked cache advances the stack) and returns
+    (y (B, 1, d_model), cache). Adapters may be 2-D or per slot
+    ``(B, din, r)``; neither reaches a kernel."""
+    mb = cfg.mamba
+    din, h = d_inner(cfg), n_heads(cfg)
+    gn = mb.n_groups * mb.d_state
+    proj = _proj(u, params["in_proj"],
+                 lora=lora.get("in_proj") if lora else None)
+    z, x, B, C, dt = _split_proj(cfg, proj)
+    xbc = torch.cat([x, B, C], dim=-1)[:, 0]                 # (B, cd)
+    conv = cache["conv"]
+    act = torch.promote_types(conv.dtype, xbc.dtype)
+    conv_in = torch.cat([conv.to(act), xbc[:, None].to(act)], dim=1)
+    conv_out = (conv_in * params["conv_w"][None]).sum(dim=1) + params["conv_b"]
+    xbc_t = F.silu(conv_out)                                 # (B, cd)
+    x_t, B_t, C_t = torch.split(xbc_t, [din, gn, gn], dim=-1)
+    bsz = u.shape[0]
+    rep = h // mb.n_groups
+    x_t = x_t.reshape(bsz, h, mb.head_dim)
+    B_t = torch.repeat_interleave(
+        B_t.reshape(bsz, mb.n_groups, mb.d_state), rep, dim=1)   # (B,H,N)
+    C_t = torch.repeat_interleave(
+        C_t.reshape(bsz, mb.n_groups, mb.d_state), rep, dim=1)
+    dt_t = F.softplus(dt[:, 0].float() + params["dt_bias"])      # (B,H)
+    A = -torch.exp(params["A_log"])
+    dA = torch.exp(dt_t * A[None])
+    ssm = cache["ssm"] * dA[:, :, None, None] + torch.einsum(
+        "bh,bhp,bhn->bhpn", dt_t, x_t.float(), B_t.float())
+    y = torch.einsum("bhpn,bhn->bhp", ssm, C_t.float())
+    y = y + x_t.float() * params["D"][None, :, None]
+    y = y.reshape(bsz, 1, din).to(u.dtype)
+    y = y * F.silu(z)
+    y = rms_norm(y, params["out_norm"], cfg.norm_eps)
+    out = _proj(y, params["out_proj"],
+                lora=lora.get("out_proj") if lora else None)
+    # the cache's own dtype: the window promotes to the activations'
+    conv.copy_(conv_in[:, 1:])
+    cache["ssm"].copy_(ssm)
+    return out, cache

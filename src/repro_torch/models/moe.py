@@ -20,7 +20,10 @@ Neither depends on the order of concurrent writes, so a run gives the
 same bits every time (the backward of the combine's gather adds only
 exact zeros into rows that another slot owns).
 
-Used by granite-moe (and, once ported, jamba and deepseek-v3).
+Used by granite-moe and jamba (its ``mamba_moe`` blocks), in training,
+prefill and decoding; at decode ``moe_block`` runs on the (B, d) tokens
+of one step, so the expert FFN sees capacity buffers of 8 rows (the
+floor of ``_capacity``). deepseek-v3's MLA blocks are not ported.
 ``moe_block_ep`` (the JAX package's expert-parallel shard_map path)
 needs several devices and is not ported (ROADMAP.md).
 """

@@ -1,22 +1,28 @@
-"""The whole model: GQA attention blocks with a SwiGLU MLP (``gqa_mlp``:
-qwen2-7b, llama2-7b-proxy, phi4-mini, qwen3, minicpm) or a top-k MoE
-(``gqa_moe``: granite-moe), and attention-free Mamba-2 blocks
-(``mamba_only``: mamba2-2.7b), for training; the dense blocks also
-serve.
+"""The whole model, for training, prefill and decoding: GQA attention
+blocks with a SwiGLU MLP (``gqa_mlp``: qwen2-7b, llama2-7b-proxy,
+phi4-mini, qwen3, minicpm) or a top-k MoE (``gqa_moe``: granite-moe),
+attention-free Mamba-2 blocks (``mamba_only``: mamba2-2.7b), and the
+hybrid order of jamba-v0.1 (``mamba_mlp``, ``mamba_moe`` and
+``gqa_mlp`` stacks interleaved by ``hybrid_order``). Every one of these
+kinds trains and decodes.
 
 Parameters keep the JAX package's *stacked* layout: every leaf of a
 layer stack carries a leading ``(L, ...)`` layer axis, so DevFT's
 grouping and fusion can later act on that axis unchanged. Where the JAX
 package runs a stack with ``lax.scan``, this module runs a Python loop
 over layers, taking per-layer views; there is no jit, scan, vmap or
-buffer donation. ``decode_step`` writes the KV cache in place.
+buffer donation. The hybrid order runs layer by layer in
+``execution_order``, as the JAX package's unrolled loop does.
+``decode_step`` writes the caches in place (K/V rows, the Mamba conv
+window and SSM state) through those per-layer views.
 ``remat=True`` checkpoints each block with ``torch.utils.checkpoint``
 (non-reentrant); the JAX package's named ``jax.checkpoint_policies``
 have no counterpart here and raise.
 
-Other block kinds (MLA, the hybrid Mamba/attention order, enc-dec,
-multimodal frontends), and decoding with MoE or Mamba-2 blocks, raise
-``NotImplementedError``; ROADMAP.md lists them.
+Other block kinds (MLA, enc-dec) and multimodal frontends raise
+``NotImplementedError``; ROADMAP.md lists them. DevFT on the hybrid
+order (submodels through ``hybrid_order`` at stage capacities) is not
+driven yet.
 
 Public API:
     init_params(cfg, gen, dtype)                  -> params
@@ -26,25 +32,24 @@ Public API:
     loss_and_lora_grads(cfg, params, lora, batch) -> (loss, metrics, grads)
     prefill(cfg, params, lora, batch)             -> last-token logits
     decode_step(cfg, params, lora, token, cache)  -> (logits, cache)
+    execution_order(cfg, sizes)                   -> [(stack, index), ...]
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.interop import tree_leaves, tree_map
+from repro_torch.interop import tree_leaves, tree_map, tree_paths
 from repro_torch.models import layers as Lyr
 from repro_torch.models import mamba2 as Mb
 from repro_torch.models import moe as Moe
 
-#: block kinds this package trains
-PORTED_KINDS = ("gqa_mlp", "gqa_moe", "mamba_only")
-#: block kinds ``decode_step`` runs (MoE and Mamba-2 decoding are later
-#: slices)
-DECODE_KINDS = ("gqa_mlp",)
+#: block kinds this package trains and decodes
+PORTED_KINDS = ("gqa_mlp", "gqa_moe", "mamba_only", "mamba_mlp",
+                "mamba_moe")
 
 
 def stack_kinds(cfg) -> Dict[str, str]:
@@ -64,14 +69,14 @@ def stack_kinds(cfg) -> Dict[str, str]:
     return {"layers": "gqa_mlp"}
 
 
-def _check_ported(cfg, kinds=PORTED_KINDS) -> None:
+def _check_ported(cfg) -> None:
     have = sorted(set(stack_kinds(cfg).values()))
-    if not set(have) <= set(kinds) or cfg.frontend or cfg.mrope:
+    if not set(have) <= set(PORTED_KINDS) or cfg.frontend or cfg.mrope:
         raise NotImplementedError(
             f"{cfg.arch_id} ({cfg.family}: blocks {have}, frontend="
-            f"{cfg.frontend}, mrope={cfg.mrope}) is not ported yet for this "
-            f"path; it runs {list(kinds)} blocks (ROADMAP.md, 'Modules to "
-            f"port': MoE and Mamba-2 decode, MLA, hybrid and frontend items)")
+            f"{cfg.frontend}, mrope={cfg.mrope}) is not ported yet; the port "
+            f"runs {list(PORTED_KINDS)} blocks (ROADMAP.md, 'Modules to "
+            f"port': MLA, enc-dec and frontend items)")
 
 
 def stack_sizes(blocks: dict) -> Dict[str, int]:
@@ -80,20 +85,62 @@ def stack_sizes(blocks: dict) -> Dict[str, int]:
             for name, stack in blocks.items()}
 
 
+def hybrid_order(sizes: Dict[str, int]):
+    """The JAX package's interleave for (sub)models of the hybrid family:
+    attention layers evenly spaced at the period's middle (Jamba's 1 in
+    8 at offset 4 for the full model), MoE on alternating Mamba slots
+    (MoE every 2nd layer); any stack sizes, so DevFT submodels run.
+    Returns [(stack name, index within the stack), ...]."""
+    mm, mo, at = (sizes.get("mamba_mlp", 0), sizes.get("mamba_moe", 0),
+                  sizes.get("attn_mlp", 0))
+    total = mm + mo + at
+    period = max(total // max(at, 1), 1)
+    attn_pos = {k * period + period // 2 for k in range(at)}
+    order, c = [], {"mamba_mlp": 0, "mamba_moe": 0, "attn_mlp": 0}
+    for i in range(total):
+        if i in attn_pos and c["attn_mlp"] < at:
+            name = "attn_mlp"
+        elif (i % 2 == 1 and c["mamba_moe"] < mo) or c["mamba_mlp"] >= mm:
+            name = "mamba_moe" if c["mamba_moe"] < mo else "mamba_mlp"
+        else:
+            name = "mamba_mlp"
+        order.append((name, c[name]))
+        c[name] += 1
+    return order
+
+
+def execution_order(cfg, sizes: Optional[Dict[str, int]] = None):
+    """[(stack name, index within the stack), ...] in layer execution
+    order: homogeneous stacks one after another, the hybrid family by
+    ``hybrid_order``. ``sizes`` overrides the config's depths
+    (submodels)."""
+    if sizes is None:
+        sizes = dict(cfg.layer_stacks())
+    if cfg.family == "hybrid":
+        return hybrid_order(sizes)
+    return [(name, i) for name, _ in cfg.layer_stacks()
+            for i in range(sizes.get(name, 0))]
+
+
 def _init_block(gen: torch.Generator, cfg, kind: str, dtype,
                 n: int) -> dict:
     """One stack of ``n`` blocks of ``kind``, every leaf ``(n, ...)``."""
     d = cfg.d_model
     dev = gen.device
     assert kind in PORTED_KINDS, kind
-    if kind == "mamba_only":
-        return {"ln1": torch.ones((n, d), dtype=dtype, device=dev),
-                "mixer": Mb.init_mamba(gen, cfg, dtype, lead=(n,))}
+    ln1 = torch.ones((n, d), dtype=dtype, device=dev)
+    if kind.startswith("mamba"):
+        mixer = Mb.init_mamba(gen, cfg, dtype, lead=(n,))
+        if kind == "mamba_only":
+            return {"ln1": ln1, "mixer": mixer}
+    else:
+        mixer = Lyr.init_gqa(gen, cfg, dtype, lead=(n,))
     return {
-        "ln1": torch.ones((n, d), dtype=dtype, device=dev),
-        "mixer": Lyr.init_gqa(gen, cfg, dtype, lead=(n,)),
+        "ln1": ln1,
+        "mixer": mixer,
         "ln2": torch.ones((n, d), dtype=dtype, device=dev),
-        "ffn": Moe.init_moe(gen, cfg, dtype, lead=(n,)) if kind == "gqa_moe"
+        "ffn": Moe.init_moe(gen, cfg, dtype, lead=(n,))
+        if kind.endswith("moe")
         else Lyr.init_mlp(gen, d, cfg.d_ff, dtype, lead=(n,)),
     }
 
@@ -103,7 +150,7 @@ def _block_lora_targets(cfg, kind: str):
     in and out projections), with their (d_in, d_out)."""
     assert kind in PORTED_KINDS, kind
     d = cfg.d_model
-    if kind == "mamba_only":
+    if kind.startswith("mamba"):
         return {"in_proj": (d, 2 * Mb.d_inner(cfg)
                             + 2 * cfg.mamba.n_groups * cfg.mamba.d_state
                             + Mb.n_heads(cfg)),
@@ -160,7 +207,7 @@ def init_lora(cfg, gen: torch.Generator, rank: int = 32,
 def _ffn(p, cfg, kind, x):
     """Returns (y, aux): the MoE block's router loss, or a zero f32 scalar
     for a dense MLP."""
-    if kind == "gqa_moe":
+    if kind.endswith("moe"):
         b, s, d = x.shape
         y, aux = Moe.moe_block(p["ffn"], cfg, x.reshape(b * s, d))
         return y.reshape(b, s, d), aux
@@ -176,8 +223,11 @@ def block_forward(p, cfg, kind, x, cos, sin, lora=None, *, window=None,
     if kind == "mamba_only":
         return x + Mb.mamba_forward(p["mixer"], cfg, h, lora=lora), \
             torch.zeros((), dtype=torch.float32, device=x.device)
-    x = x + Lyr.gqa_attention(p["mixer"], cfg, h, cos, sin, lora=lora,
-                              window=window, causal=causal)
+    if kind.startswith("mamba"):
+        x = x + Mb.mamba_forward(p["mixer"], cfg, h, lora=lora)
+    else:
+        x = x + Lyr.gqa_attention(p["mixer"], cfg, h, cos, sin, lora=lora,
+                                  window=window, causal=causal)
     h2 = Lyr.rms_norm(x, p["ln2"], cfg.norm_eps)
     y, aux = _ffn(p, cfg, kind, h2)
     return x + y, aux
@@ -203,44 +253,36 @@ def _on_device(a, device) -> torch.Tensor:
     return torch.as_tensor(a).to(device)
 
 
-def _run_stack(cfg, stack_params, kind, x, cos, sin, stack_lora, *,
-               window=None, remat=False):
-    """Run a homogeneous stack layer by layer (per-layer views of the
-    stacked leaves). Returns (x, total_aux)."""
+def _layer(stack, i: int):
+    """Layer ``i``'s views of a stacked tree (None stays None)."""
+    return None if stack is None else tree_map(lambda a: a[i], stack)
+
+
+def forward_hidden(cfg, params, lora, batch, *, window=None, remat=False):
+    """Run every layer in ``execution_order`` (per-layer views of the
+    stacked leaves); returns (final-normed hidden (B,S,d), aux), aux
+    summed layer by layer as the JAX package's scan carries it."""
+    _check_ported(cfg)
     if remat not in (False, None, True):
         raise NotImplementedError(
             f"remat={remat!r}: named checkpoint policies are JAX's "
             f"(jax.checkpoint_policies); the port has remat=True (whole "
             f"blocks) or False (ROADMAP.md)")
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in range(tree_leaves(stack_params)[0].shape[0]):
-        def at(a, i=layer):
-            return a[i]
-        p = tree_map(at, stack_params)
-        lo = None if stack_lora is None else tree_map(at, stack_lora)
+    x, cos, sin = _embed_inputs(cfg, params, batch)
+    kinds = stack_kinds(cfg)
+    total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for name, i in execution_order(cfg, stack_sizes(params["blocks"])):
+        p = _layer(params["blocks"][name], i)
+        lo = _layer(lora.get(name) if lora else None, i)
 
-        def body(xc, p=p, lo=lo):
+        def body(xc, p=p, lo=lo, kind=kinds[name]):
             return block_forward(p, cfg, kind, xc, cos, sin, lo,
                                  window=window)
         if remat:
             x, a = checkpoint(body, x, use_reentrant=False)
         else:
             x, a = body(x)
-        aux = aux + a
-    return x, aux
-
-
-def forward_hidden(cfg, params, lora, batch, *, window=None, remat=False):
-    """Run all layers; returns (final-normed hidden (B,S,d), aux)."""
-    _check_ported(cfg)
-    x, cos, sin = _embed_inputs(cfg, params, batch)
-    kinds = stack_kinds(cfg)
-    total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for name, _n in cfg.layer_stacks():
-        x, aux = _run_stack(cfg, params["blocks"][name], kinds[name], x,
-                            cos, sin, lora.get(name) if lora else None,
-                            window=window, remat=remat)
-        total_aux = total_aux + aux
+        total_aux = total_aux + a
     return Lyr.rms_norm(x, params["final_norm"], cfg.norm_eps), total_aux
 
 
@@ -266,14 +308,22 @@ def loss_and_lora_grads(cfg, params, lora, batch, *, window=None,
     LoRA tree: returns (total, metrics, grads), grads a tree like
     ``lora`` in the leaves' dtypes. The frozen params get no gradient;
     the inputs are left untouched (the leaves are differentiated through
-    detached copies)."""
+    detached copies). The leaves of an empty stack (a submodel's, zero
+    layers) get zeros, as in JAX; any other leaf the loss does not reach
+    raises."""
     lo = tree_map(lambda t: t.detach().requires_grad_(True), lora)
-    leaves = tree_leaves(lo)
+    paths = tree_paths(lo)
+    leaves = [t for _, t in paths]
     with torch.enable_grad():
         total, metrics = loss_fn(cfg, params, lo, batch, window=window,
                                  remat=remat)
-        grads = torch.autograd.grad(total, leaves)
-    by_leaf = {id(t): g for t, g in zip(leaves, grads)}
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    unreached = [path for (path, t), g in zip(paths, grads)
+                 if g is None and t.shape[0] > 0]
+    if unreached:
+        raise RuntimeError(f"the loss does not reach LoRA leaves {unreached}")
+    by_leaf = {id(t): torch.zeros_like(t) if g is None else g
+               for t, g in zip(leaves, grads)}
     return (total.detach(), {k: v.detach() for k, v in metrics.items()},
             tree_map(lambda t: by_leaf[id(t)], lo))
 
@@ -291,25 +341,48 @@ def prefill(cfg, params, lora, batch, *, window=None):
 
 def block_decode(p, cfg, kind, x, cache, pos, cos, sin, lora=None):
     """Single-token pre-norm residual block; writes ``cache`` in place.
-    Returns (y, cache)."""
+    ``mamba_only`` takes its Mamba cache as is, the other kinds under
+    ``"mixer"``. Returns (y, cache)."""
     h = Lyr.rms_norm(x, p["ln1"], cfg.norm_eps)
-    mix, cache["mixer"] = Lyr.gqa_decode(p["mixer"], cfg, h, cache["mixer"],
-                                         pos, cos, sin, lora=lora)
+    if kind == "mamba_only":
+        mix, cache = Mb.mamba_decode(p["mixer"], cfg, h, cache, lora=lora)
+        return x + mix, cache
+    if kind.startswith("mamba"):
+        mix, cache["mixer"] = Mb.mamba_decode(p["mixer"], cfg, h,
+                                              cache["mixer"], lora=lora)
+    else:
+        mix, cache["mixer"] = Lyr.gqa_decode(p["mixer"], cfg, h,
+                                             cache["mixer"], pos, cos, sin,
+                                             lora=lora)
     x = x + mix
     h2 = Lyr.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + Lyr.mlp(p["ffn"], h2), cache
+    y, _aux = _ffn(p, cfg, kind, h2)
+    return x + y, cache
+
+
+def _init_block_cache(cfg, kind, batch, capacity, dtype, device, lead):
+    if kind == "mamba_only":
+        return Mb.init_mamba_cache(cfg, batch, dtype, device, lead=lead)
+    if kind.startswith("mamba"):
+        return {"mixer": Mb.init_mamba_cache(cfg, batch, dtype, device,
+                                             lead=lead)}
+    return {"mixer": Lyr.init_gqa_cache(cfg, batch, capacity, dtype, device,
+                                        lead=lead)}
 
 
 def init_cache(cfg, batch: int, capacity: int, dtype=None,
                device="cuda") -> dict:
-    """Stacked decode cache: per stack ``{'mixer': {'k', 'v'}}`` leaves of
-    shape (L, B, C, Hkv, hd), and per-slot positions ``pos (B,)``."""
-    _check_ported(cfg, DECODE_KINDS)
+    """Stacked decode cache: per stack its kind's cache with leaves of
+    shape (L, B, ...) — attention ``{'mixer': {'k', 'v'}}`` of (L, B, C,
+    Hkv, hd); Mamba ``{'conv', 'ssm'}`` (``mamba_only``) or the same
+    under ``'mixer'``, ``ssm`` in f32 — and per-slot positions
+    ``pos (B,)``."""
+    _check_ported(cfg)
     dtype = dtype or getattr(torch, cfg.dtype)
     sizes = dict(cfg.layer_stacks())
-    stacks = {name: {"mixer": Lyr.init_gqa_cache(cfg, batch, capacity, dtype,
-                                                 device, lead=(sizes[name],))}
-              for name in stack_kinds(cfg)}
+    stacks = {name: _init_block_cache(cfg, kind, batch, capacity, dtype,
+                                      device, (sizes[name],))
+              for name, kind in stack_kinds(cfg).items()}
     return {"stacks": stacks,
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
@@ -320,25 +393,28 @@ def logits_from_hidden(cfg, params, h):
 
 
 def decode_step(cfg, params, lora, token, cache):
-    """One-token decode. token: (B, 1) int. Writes each layer's K/V into
-    ``cache`` in place and returns (logits (B, 1, Vp), {"stacks": the
-    same stacks, "pos": pos + 1}); ``cache["pos"]`` itself is left as it
-    was, so a caller can keep the old cursor of an inactive slot."""
-    _check_ported(cfg, DECODE_KINDS)
+    """One-token decode. token: (B, 1) int. Runs every layer in
+    ``execution_order``, writing its cache (K/V rows, or the conv window
+    and SSM state) in place through per-layer views, and returns (logits
+    (B, 1, Vp), {"stacks": the same stacks, "pos": pos + 1});
+    ``cache["pos"]`` itself is left as it was, so a caller can keep the
+    old cursor of an inactive slot. A config without attention heads
+    gets zero rotary tables, as in the JAX package."""
+    _check_ported(cfg)
     x = params["embed"][token]
+    b = token.shape[0]
     pos = cache["pos"]
-    cos, sin = Lyr.rope_cos_sin(pos[:, None], cfg.hd, cfg.rope_theta)
+    if cfg.n_heads:
+        cos, sin = Lyr.rope_cos_sin(pos[:, None], cfg.hd, cfg.rope_theta)
+    else:
+        cos = sin = torch.zeros((b, 1, 1), dtype=torch.float32,
+                                device=x.device)
     kinds = stack_kinds(cfg)
-    for name, _n in cfg.layer_stacks():
-        stack_p = params["blocks"][name]
-        stack_lo = lora.get(name) if lora else None
-        stack_c = cache["stacks"][name]
-        for layer in range(tree_leaves(stack_p)[0].shape[0]):
-            def at(a, i=layer):
-                return a[i]
-            lo = None if stack_lo is None else tree_map(at, stack_lo)
-            x, _ = block_decode(tree_map(at, stack_p), cfg, kinds[name], x,
-                                tree_map(at, stack_c), pos, cos, sin, lo)
+    for name, i in execution_order(cfg, stack_sizes(params["blocks"])):
+        x, _ = block_decode(_layer(params["blocks"][name], i), cfg,
+                            kinds[name], x,
+                            _layer(cache["stacks"][name], i), pos, cos, sin,
+                            _layer(lora.get(name) if lora else None, i))
     h = Lyr.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = logits_from_hidden(cfg, params, h)
     # mask vocab padding so greedy decode never emits a pad id

@@ -22,21 +22,24 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.flash_decode import (
     MAX_SMEM, MMA_MAX_CHUNKS, MMA_MAX_STAGES, MMA_MIN_STAGES, MMA_TILE,
     flash_decode_bhrd, live_chunks, mma_chunk, plan, reset_counts)
-from repro_torch.models.transformer import DECODE_KINDS, stack_kinds
+from repro_torch.models.transformer import PORTED_KINDS, stack_kinds
 
 torch.set_num_threads(1)
 
 N_SM = 132                      # an H100 SXM
 BF16, F32 = torch.bfloat16, torch.float32
 DTYPES = {"bf16": (BF16, BF16), "f32q-bf16kv": (F32, BF16), "f32": (F32, F32)}
-#: the configs whose every layer kind decodes in the port
+#: the configs with attention whose every layer kind decodes in the port
 DECODING = [a for a in ALL_ARCH_IDS
-            if set(stack_kinds(get_config(a)).values()) <= set(DECODE_KINDS)]
+            if set(stack_kinds(get_config(a)).values()) <= set(PORTED_KINDS)
+            and get_config(a).n_heads]
 
 
 def test_decoding_configs_are_the_expected_ones():
     assert {"qwen2-7b", "qwen3-32b", "phi4-mini-3.8b", "minicpm-2b",
-            "llama2-7b-proxy"} <= set(DECODING)
+            "llama2-7b-proxy", "granite-moe-1b-a400m",
+            "jamba-v0.1-52b"} <= set(DECODING)
+    assert "mamba2-2.7b" not in DECODING      # decodes, with no attention
 
 
 @pytest.mark.parametrize("b,cap", [(8, 1024), (8, 4096), (1, 4096),

@@ -20,7 +20,8 @@ them with ``jax.random``), with a non-zero LoRA on in_proj and out_proj.
   holds its own two backends to (``tests/test_kernel_dispatch.py``),
   through both branches.
 * ``prefill``'s last-token logits, f32, at 1e-4.
-* ``decode_step`` and ``init_cache`` on Mamba-2 blocks still raise.
+* ``init_cache`` and ``decode_step`` on ``mamba_only`` blocks run (their
+  parity with the JAX package is ``tests/test_torch_decode_mamba.py``).
 """
 import dataclasses
 
@@ -183,11 +184,22 @@ def test_prefill_logits_match_jax(test_spec):
 
 
 def test_mamba_decode_is_not_ported(test_spec):
+    """The Mamba-2 decode path runs: the cache is ``mamba_only``'s
+    unwrapped ``{conv, ssm}`` (``ssm`` f32), ``decode_step`` advances
+    both leaves and the cursor, and its logits are finite. (The name is
+    the one this test had while Mamba decoding still raised.)"""
     _, pcfg = _cfgs(test_spec)
     params = PT.init_params(pcfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PT.init_cache(pcfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cache = {"stacks": {}, "pos": torch.zeros(1, dtype=torch.int32)}
-        PT.decode_step(pcfg, params, None,
-                       torch.zeros(1, 1, dtype=torch.long), cache)
+    cache = PT.init_cache(pcfg, 2, 8, device="cpu")
+    stack = cache["stacks"]["layers"]
+    assert sorted(stack) == ["conv", "ssm"]
+    assert stack["ssm"].dtype == torch.float32
+    assert tuple(stack["conv"].shape) == (
+        pcfg.n_layers, 2, pcfg.mamba.conv_width - 1, PMb.conv_dim(pcfg))
+    logits, new = PT.decode_step(pcfg, params, None,
+                                 torch.tensor([[1], [2]]), cache)
+    assert tuple(logits.shape) == (2, 1, pcfg.padded_vocab)
+    assert bool(torch.isfinite(logits[..., :pcfg.vocab]).all())
+    assert new["pos"].tolist() == [1, 1]
+    assert new["stacks"] is cache["stacks"]
+    assert stack["conv"].any() and stack["ssm"].any()

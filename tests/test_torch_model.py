@@ -214,12 +214,18 @@ def test_init_trees_mirror_jax(arch, test_spec):
 
 
 def test_unported_block_kinds_raise(test_spec):
-    # granite-moe's gqa_moe blocks are ported (tests/test_torch_moe.py);
-    # jamba's hybrid mamba/MoE/attention order is not
-    cfg = reduce_config(get_config("jamba-v0.1-52b"),
-                        ReducedSpec(**dataclasses.asdict(test_spec)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PT.init_params(cfg, torch.Generator().manual_seed(0))
+    """MLA (deepseek-v3) and the enc-dec order (whisper-tiny) are not
+    ported; the hybrid order is (``tests/test_torch_hybrid.py``)."""
+    spec = ReducedSpec(**dataclasses.asdict(test_spec))
+    for arch in ("deepseek-v3-671b", "whisper-tiny"):
+        cfg = reduce_config(get_config(arch), spec)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            PT.init_params(cfg, torch.Generator().manual_seed(0))
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            PT.init_cache(cfg, 1, 8, device="cpu")
+    jamba = reduce_config(get_config("jamba-v0.1-52b"), spec)
+    params = PT.init_params(jamba, torch.Generator().manual_seed(0))
+    assert sorted(params["blocks"]) == ["attn_mlp", "mamba_mlp", "mamba_moe"]
 
 
 SETUPS = [

@@ -23,7 +23,8 @@ model against the JAX package, on reduced granite-moe-1b-a400m.
   of its buffer, computed on the device from the dispatch counts) to the
   expert FFN: its output is the same bits as without the fill, and
   matches JAX ``moe_block`` at the tolerances above.
-* ``decode_step`` on MoE blocks still raises.
+* ``init_cache`` and ``decode_step`` on ``gqa_moe`` blocks run (their
+  parity with the JAX package is ``tests/test_torch_decode_moe.py``).
 """
 import dataclasses
 import types
@@ -271,14 +272,20 @@ def test_forced_kernel_branch_equals_plain_path(test_spec, monkeypatch):
 
 
 def test_moe_decode_is_not_ported(test_spec):
+    """The MoE decode path runs: stacked expert weights, an attention
+    cache per layer, finite logits, and the cursor advanced. (The name
+    is the one this test had while MoE decoding still raised.)"""
     _, pcfg = _cfgs(test_spec)
     gen = torch.Generator().manual_seed(0)
     params = PT.init_params(pcfg, gen)
     assert params["blocks"]["layers"]["ffn"]["wg"].shape == (
         pcfg.n_layers, pcfg.moe.n_experts, pcfg.d_model,
         pcfg.moe.d_ff_expert)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PT.init_cache(pcfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PT.decode_step(pcfg, params, None, torch.zeros(1, 1, dtype=torch.long),
-                       {"stacks": {}, "pos": torch.zeros(1, dtype=torch.int32)})
+    cache = PT.init_cache(pcfg, 3, 8, device="cpu")
+    assert sorted(cache["stacks"]["layers"]["mixer"]) == ["k", "v"]
+    logits, new = PT.decode_step(pcfg, params, None,
+                                 torch.tensor([[1], [2], [3]]), cache)
+    assert tuple(logits.shape) == (3, 1, pcfg.padded_vocab)
+    assert bool(torch.isfinite(logits[..., :pcfg.vocab]).all())
+    assert new["pos"].tolist() == [1, 1, 1]
+    assert cache["stacks"]["layers"]["mixer"]["k"][:, :, 0].any()

@@ -394,8 +394,13 @@ def test_kv_cache_flash_decode_seam():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("mode", [["--n-adapters", "2"], ["--merge-lora"]],
-                         ids=["multi-tenant", "merged"])
+@pytest.mark.parametrize("mode", [
+    ["--n-adapters", "2"], ["--merge-lora"],
+    ["--n-adapters", "2", "--arch", "granite-moe-1b-a400m"],
+    ["--n-adapters", "2", "--arch", "mamba2-2.7b"],
+    ["--n-adapters", "2", "--arch", "jamba-v0.1-52b"]],
+    ids=["multi-tenant", "merged", "granite-moe-1b-a400m", "mamba2-2.7b",
+         "jamba-v0.1-52b"])
 def test_serve_cli_runs_on_cpu(mode):
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run(
