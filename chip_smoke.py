@@ -5,14 +5,15 @@
 
 Builds every Hopper kernel from the sources in this checkout, holds
 each against its plain PyTorch version on the card and times both, then
-drives the serving path (qwen2-7b, granite-moe-1b-a400m, mamba2-2.7b
-and jamba-v0.1-52b), the training path (llama2-7b-proxy, FedAvg
-rounds), the other federated methods through a sweep, the train->serve
-hand-off (a FedSA round exported, checkpointed and served) and DevFT's
-training entry point (granite-moe-1b-a400m and mamba2-2.7b, four stages
-each, then each run's global adapter served) through the port's own
-entry points at full width with random weights, and checks card-vs-CPU
-parity at reduced sizes. Phases, in order:
+drives the serving path (qwen2-7b, granite-moe-1b-a400m, mamba2-2.7b,
+jamba-v0.1-52b and deepseek-v3-671b), the training path
+(llama2-7b-proxy, FedAvg rounds), the other federated methods through a
+sweep, the train->serve hand-off (a FedSA round exported, checkpointed
+and served) and DevFT's training entry point (granite-moe-1b-a400m,
+mamba2-2.7b, jamba-v0.1-52b and deepseek-v3-671b, four stages each, then
+each run's global adapter served) through the port's own entry points
+at full width with random weights (jamba's and deepseek's depth cut),
+and checks card-vs-CPU parity at reduced sizes. Phases, in order:
 
 1. device: card, power limit, versions, kernel build time, ptxas lines
    (registers, spills, performance-loss warnings);
@@ -45,11 +46,19 @@ parity at reduced sizes. Phases, in order:
    at every decode shape a serving phase launches (``SERVED_DECODE``,
    ``SERVED_MOE``; each serving phase checks that its shapes are
    there): ``flash_decode`` at qwen2-7b's B8 C1024 H28/4 hd128,
-   granite's B8 C1024 H16/8 hd64, jamba's B8 C1024 H32/8 hd128 and
-   granite's DevFT serve B4 C24 H16/8 hd64 (the last three with two
-   calls bit-equal) and ``moe_expert_ffn`` at granite's E32 C8 d1024
-   ff512 and jamba's E16 C8 d4096 ff14336 with the fill (one 128-row
-   tile holds an expert's 8 rows);
+   granite's B8 C1024 H16/8 hd64, jamba's B8 C1024 H32/8 hd128,
+   granite's and jamba's DevFT serve B4 C24, and deepseek-v3's absorbed
+   MLA decode B8 C1024 and B4 C24 H128/1 hd576 vd512 (planned ``fma``;
+   every one but qwen2-7b's with two calls bit-equal), each with its
+   bytes and operations bounds, and ``moe_expert_ffn`` at granite's E32
+   C8 d1024 ff512, jamba's E16 C8 d4096 ff14336 and deepseek's E256 C8
+   d7168 ff2048 with the fill (one 128-row tile holds an expert's 8
+   rows); at the DevFT training shapes of jamba and deepseek:
+   ``moe_expert_ffn`` E16 C640 d4096 ff14336 and E256 C160 d7168 ff2048
+   (the f32-inside version built 16 experts at a time), ``lora_matmul``
+   on jamba's in_proj, out_proj and W_v and deepseek's W_q_b and W_kv_b,
+   ``flash_attention`` at jamba's B4 S1024 H32/8 D128 and ``ssd_scan``
+   at jamba's B4 S1024 H128 P64 N16;
    ``flash_attention`` with the variant of every case, ragged S, windows
    inside and across tiles, GQA, strided views of a fused QKV tensor,
    one-hot V (the output is the probability matrix) and a grid smaller
@@ -59,25 +68,31 @@ parity at reduced sizes. Phases, in order:
    and times of kernel, plain version and a PyTorch yardstick the port
    never calls, beside the bound;
 3. serving: qwen2-7b unreduced (28 layers, d 3584, 28/4 heads, vocab
-   152064), then granite-moe-1b-a400m, mamba2-2.7b and jamba-v0.1-52b
-   at full width (jamba's depth cut to one interleave period, 8 of its
-   32 layers, stacks 3 / 4 / 1; the phase says so), bf16, 4 resident
+   152064), then granite-moe-1b-a400m, mamba2-2.7b, jamba-v0.1-52b and
+   deepseek-v3-671b at full width (jamba's depth cut to one interleave
+   period, 8 of its 32 layers, stacks 3 / 4 / 1; deepseek's to its 3
+   dense and 2 MoE layers of 61, 53.2 GB; the phase says so), bf16, 4
+   resident
    nonzero rank-8 adapters, 8 slots, capacity 1024, 16 requests of 16 to
    512 (qwen2-7b) or 256 prompt and 32 generated tokens; exact launches
    per engine step (``flash_decode`` once per attention layer, every
-   call on ``tma_mma``; ``moe_expert_ffn`` once per MoE layer, every
+   call on ``tma_mma``, on deepseek's MLA ``fma``; ``moe_expert_ffn``
+   once per MoE layer, every
    call on ``wgmma`` with the fill, unpadded; no training kernel; every
    kernel 0 on mamba2, whose decoding the JAX package keeps plain);
    decode p50/p99, TTFT p50, tok/s, peak memory, finite logits;
 4. trace: for each served arch, device busy share over a few profiled
    engine steps, kernels a step, and each hand kernel's share of it;
-5. parity: reduced qwen2-7b, granite-moe-1b-a400m, mamba2-2.7b and
-   jamba-v0.1-52b in f32 give the same greedy tokens on the card
-   (kernels) and on the CPU (plain versions), with slot recycling;
+5. parity: reduced qwen2-7b, granite-moe-1b-a400m, mamba2-2.7b,
+   jamba-v0.1-52b and deepseek-v3-671b in f32 give the same greedy
+   tokens on the card (kernels) and on the CPU (plain versions), with
+   slot recycling;
 5a. prefill vs decode: f32 at full width, mamba2 4 layers (S 300 across
    two chunks), granite 4 layers and jamba 8 (both at capacity factor
-   E/k, so no token drops): prefill's last-token logits through
-   ``ssd_scan``, ``flash_attention``, ``moe_expert_ffn`` and
+   E/k, so no token drops), deepseek's 3 dense MLA layers (prefill
+   expands k and v from the latent, decoding attends over it through
+   ``flash_decode`` at hd 576, vd 512): prefill's last-token logits
+   through ``ssd_scan``, ``flash_attention``, ``moe_expert_ffn`` and
    ``lora_matmul`` (a shared 2-D LoRA; exact launches, every kernel on
    its f32 variant) against teacher-forced decoding within 1e-3
    row-scaled;
@@ -138,8 +153,19 @@ parity at reduced sizes. Phases, in order:
    function with the same settings: capacities 8, 16, 32, 64; exact
    launch counts (``ssd_scan`` 600, every call on its ``mma`` kernel,
    ``lora_matmul`` 1200 on in_proj and out_proj, the other three 0); the
-   profiled step at capacity 64 with ``ssd_scan``'s share. After each of
-   the two DevFT phases, its run's ``global`` adapter
+   profiled step at capacity 64 with ``ssd_scan``'s share;
+12. devft on jamba-v0.1-52b at full width over one interleave period (8
+   of 32 layers, the spec's config cut; 25.6 GB): capacities 1, 2, 4, 8
+   over the stacks mamba_mlp / mamba_moe / attn_mlp (1, 1, 1), (1, 1, 1),
+   (2, 1, 1), (3, 4, 1); launches per layer by block kind (``ssd_scan``
+   70, ``moe_expert_ffn`` 35, ``flash_attention`` 20, ``lora_matmul``
+   180); DGLG's groups card vs CPU for every stack a stage cut;
+13. devft on deepseek-v3-671b at full width over its 3 dense and 1 MoE
+   layers (4 of 61; 29.7 GB): capacities 1, 2, 3, 4 over dense / moe
+   (1, 1), (1, 1), (2, 1), (3, 1) (the MoE stack is never cut, so no
+   stage copies its 22.5 GB of experts); ``lora_matmul`` 110 on W_q_b
+   and W_kv_b, ``moe_expert_ffn`` 20, MLA's attention plain as in JAX.
+   After each of the four DevFT phases, its run's ``global`` adapter
    (``registry_from_run(..., personalize=False)``, bit-equal to the
    final LoRA) is served on the run's base params, 4 requests of 16 + 8
    tokens, with the serve phase's launch checks.
@@ -247,14 +273,43 @@ DECODE_SERVE = "serve C1024 bf16"
 DECODE_GRANITE = "granite B8 C1024 H16/8 hd64 bf16"
 DECODE_JAMBA = "jamba B8 C1024 H32/8 hd128 bf16"
 DECODE_DEVFT = "granite devft-serve B4 C24 H16/8 hd64 bf16"
+DECODE_JAMBA_DEVFT = "jamba devft-serve B4 C24 H32/8 hd128 bf16"
+#: deepseek-v3-671b's absorbed MLA decode: q = [q_abs | q_rope] (hd 512 +
+#: 64), one latent kv head [c | k_rope], v = c (vd 512), 128 query heads;
+#: served at 8 slots of 1024 and its DevFT run at 4 slots of 24
+DECODE_MLA = "deepseek B8 C1024 H128/1 hd576 vd512 bf16"
+DECODE_MLA_DEVFT = "deepseek devft-serve B4 C24 H128/1 hd576 vd512 bf16"
 #: every flash_decode shape a serving phase launches, bf16: (slots, heads,
-#: kv heads, head dim, capacity) -> the kernel phase's case that holds it
+#: kv heads, head dim, v head dim, capacity) -> the kernel phase's case
+#: that holds it
 SERVED_DECODE = {
-    (8, 28, 4, 128, 1024): DECODE_SERVE,
-    (8, 16, 8, 64, 1024): DECODE_GRANITE,
-    (8, 32, 8, 128, 1024): DECODE_JAMBA,
-    (4, 16, 8, 64, 24): DECODE_DEVFT,
+    (8, 28, 4, 128, 128, 1024): DECODE_SERVE,
+    (8, 16, 8, 64, 64, 1024): DECODE_GRANITE,
+    (8, 32, 8, 128, 128, 1024): DECODE_JAMBA,
+    (4, 16, 8, 64, 64, 24): DECODE_DEVFT,
+    (4, 32, 8, 128, 128, 24): DECODE_JAMBA_DEVFT,
+    (8, 128, 1, 576, 512, 1024): DECODE_MLA,
+    (4, 128, 1, 576, 512, 24): DECODE_MLA_DEVFT,
 }
+
+
+def _decode_shape(cfg, n_slots, capacity):
+    """(slots, heads, kv heads, hd, vd, capacity) of ``cfg``'s
+    ``flash_decode`` calls: MLA attends over its latent (one kv head,
+    hd = kv_lora_rank + rope, vd = kv_lora_rank)."""
+    if cfg.attn_kind == "mla":
+        m = cfg.mla
+        return (n_slots, cfg.n_heads, 1, m.kv_lora_rank + m.qk_rope_head_dim,
+                m.kv_lora_rank, capacity)
+    return (n_slots, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.hd, capacity)
+
+
+def _decode_variant(cfg, dtype):
+    """The ``flash_decode`` variant ``cfg``'s decode plans: ``tma_mma`` in
+    bf16 up to head dim 128, ``fma`` otherwise (f32, and MLA's 576 / 512)."""
+    hd, vd = _decode_shape(cfg, 1, 1)[3:5]
+    return ("tma_mma" if dtype == torch.bfloat16 and max(hd, vd) <= 128
+            else "fma")
 
 
 def _held_cases(cfg, n_slots, capacity, launches):
@@ -264,9 +319,9 @@ def _held_cases(cfg, n_slots, capacity, launches):
 
     held = []
     if launches["flash_decode_bhrd"]:
-        shape = (n_slots, cfg.n_heads, cfg.n_kv_heads, cfg.hd, capacity)
-        check(shape in SERVED_DECODE, f"flash_decode at (B, H, Hkv, hd, C) "
-              f"{shape}: no kernel-phase case holds this shape")
+        shape = _decode_shape(cfg, n_slots, capacity)
+        check(shape in SERVED_DECODE, f"flash_decode at (B, H, Hkv, hd, vd, "
+              f"C) {shape}: no kernel-phase case holds this shape")
         held.append(SERVED_DECODE[shape])
     if launches["moe_expert_ffn_ecd"]:
         m = cfg.moe
@@ -325,8 +380,8 @@ def kernel_phase(flash_decode_bhrd, flash_decode_ref, seed: int = 0):
          torch.bfloat16, torch.bfloat16),
         ("rep16 C1000 bf16", 4, 32, 2, 128, 128, 1000,
          torch.bfloat16, torch.bfloat16),
-    ] + [(case, b, h, hkv, hd, hd, cap, torch.bfloat16, torch.bfloat16)
-         for (b, h, hkv, hd, cap), case in SERVED_DECODE.items()]
+    ] + [(case, b, h, hkv, hd, vd, cap, torch.bfloat16, torch.bfloat16)
+         for (b, h, hkv, hd, vd, cap), case in SERVED_DECODE.items()]
     rows = {}
     for name, b, h, hkv, hd, vd, cap, qdt, kvdt in cases:
         def rand(*shape, dt):
@@ -342,7 +397,7 @@ def kernel_phase(flash_decode_bhrd, flash_decode_ref, seed: int = 0):
         valid = torch.from_numpy(valid_np).to(dev)
         p = plan(b, h, hkv, cap, hd, vd, qdt, kvdt, sm_count(q.device))
         check(p.variant == ("tma_mma" if qdt == kvdt == torch.bfloat16
-                            else "fma"),
+                            and max(hd, vd) <= 128 else "fma"),
               f"{name}: plan picked {p.variant}")
 
         extra = ""
@@ -363,7 +418,8 @@ def kernel_phase(flash_decode_bhrd, flash_decode_ref, seed: int = 0):
             check(torch.equal(out_nan, out),
                   f"{name}: NaN rows past valid changed the output")
             extra = " | NaN rows past valid: output bit-equal to zeros there"
-        if name in (DECODE_GRANITE, DECODE_JAMBA, DECODE_DEVFT):
+        if name in (DECODE_GRANITE, DECODE_JAMBA, DECODE_DEVFT,
+                    DECODE_JAMBA_DEVFT, DECODE_MLA, DECODE_MLA_DEVFT):
             again = flash_decode_bhrd(q, k, v, kv_valid_len=valid)
             torch.cuda.synchronize()
             check(torch.equal(again, out), f"{name}: two calls differ")
@@ -389,9 +445,8 @@ def kernel_phase(flash_decode_bhrd, flash_decode_ref, seed: int = 0):
                        + live * hkv * (hd + vd) * esz_kv
                        + out.numel() * out.element_size())
         flops = 2 * live * h * (hd + vd)
-        bound_ms, bound_by = _bound(
-            bytes_moved, flops,
-            BF16_FLOPS if qdt == kvdt == torch.bfloat16 else F32_FLOPS)
+        peak = BF16_FLOPS if qdt == kvdt == torch.bfloat16 else F32_FLOPS
+        bound_ms, bound_by = _bound(bytes_moved, flops, peak)
 
         call = lambda: flash_decode_bhrd(q, k, v,  # noqa: E731
                                          kv_valid_len=valid)
@@ -406,11 +461,12 @@ def kernel_phase(flash_decode_bhrd, flash_decode_ref, seed: int = 0):
                 < valid[:, None])[:, None, None, :]      # (B, 1, 1, C)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         library_ms = time_cuda(
-            lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True), flush)
+            lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True,
+                         scale=hd ** -0.5), flush)
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=library_ms, variant=p.variant)
-        if name in (DECODE_PATH, DECODE_SERVE):
+        if name in (DECODE_PATH, DECODE_SERVE, DECODE_MLA):
             # the first design (fma) on the same inputs
             scale = hd ** -0.5
             old = plan(b, h, hkv, cap, hd, vd, qdt, kvdt, sm_count(q.device),
@@ -424,7 +480,7 @@ def kernel_phase(flash_decode_bhrd, flash_decode_ref, seed: int = 0):
                   f"{tol}, {row_tol}")
             was = lambda: run_plan(old, q, k, v, valid, scale)  # noqa: E731
             lib = lambda: sdpa(qs, ks, vs, attn_mask=mask,  # noqa: E731
-                               enable_gqa=True)
+                               enable_gqa=True, scale=hd ** -0.5)
             was_ms = time_cuda(was, flush)
             # the same three after a flush that leaves L2 clean: without
             # the write-back of ~50 MB of dirty lines the dirty flush adds
@@ -443,7 +499,7 @@ def kernel_phase(flash_decode_bhrd, flash_decode_ref, seed: int = 0):
                               clean_l2_ms=clean["kernel"],
                               clean_l2_was_ms=clean["fma"],
                               clean_l2_library_ms=clean["sdpa"])
-            extra = (f" | fma (was) {was_ms * 1e3:.1f} us (row-scaled "
+            extra += (f" | fma (was) {was_ms * 1e3:.1f} us (row-scaled "
                      f"{old_row_err:.3g}); clean L2: kernel "
                      f"{clean['kernel'] * 1e3:.1f} us "
                      f"({100 * bound_ms / clean['kernel']:.1f}% of bound), "
@@ -458,7 +514,10 @@ def kernel_phase(flash_decode_bhrd, flash_decode_ref, seed: int = 0):
               f"| kernel {ms * 1e3:.1f} us, plain "
               f"{plain_ms * 1e3:.1f} us, sdpa {library_ms * 1e3:.1f} us, "
               f"bound {bound_ms * 1e3:.2f} us ({bound_by}; "
-              f"{bytes_moved / 1e6:.2f} MB, "
+              f"{bytes_moved / 1e6:.2f} MB in "
+              f"{bytes_moved / HBM_BYTES_PER_S * 1e6:.2f} us, "
+              f"{flops / 1e9:.3f} GFLOP in "
+              f"{flops / peak * 1e6:.2f} us; "
               f"{100 * bound_ms / ms:.1f}% of bound){extra}")
     del flush
     return rows
@@ -533,6 +592,19 @@ def lora_phase(lora_matmul_fused, lora_matmul_ref, seed: int = 0):
          bf16),
         ("mamba M4096 K5120 N2560 r32 bf16", (4, 1024, 5120), 2560, 32,
          bf16),
+        # jamba-v0.1-52b's Mamba in_proj and out_proj and its attention
+        # W_v (W_q is the path shape) on the DevFT path
+        ("jamba in_proj M4096 K4096 N16544 r32 bf16", (4, 1024, 4096), 16544,
+         32, bf16),
+        ("jamba out_proj M4096 K8192 N4096 r32 bf16", (4, 1024, 8192), 4096,
+         32, bf16),
+        ("jamba wv M4096 K4096 N1024 r32 bf16", (4, 1024, 4096), 1024, 32,
+         bf16),
+        # deepseek-v3-671b's MLA up-projections W_q_b and W_kv_b
+        ("deepseek wq_b M4096 K1536 N24576 r32 bf16", (4, 1024, 1536), 24576,
+         32, bf16),
+        ("deepseek wkv_b M4096 K512 N32768 r32 bf16", (4, 1024, 512), 32768,
+         32, bf16),
     ]
     rows = {}
     for name, xs, n, r, dt in cases:
@@ -559,7 +631,8 @@ def lora_phase(lora_matmul_fused, lora_matmul_ref, seed: int = 0):
         p = plan(m, k, n, r, dt)
         check(p.variant == ("wgmma" if dt == bf16 else "fma_f32"),
               f"lora {name}: variant {p.variant}")
-        on_path = name == LORA_PATH or name.startswith(("granite", "mamba"))
+        on_path = name == LORA_PATH or name.startswith(
+            ("granite", "mamba", "jamba", "deepseek"))
         check(not (on_path and p.padded),
               f"lora {name}: a training path's shape padded ({p})")
         if name == LORA_PATH:
@@ -666,6 +739,8 @@ def _live_pairs(s, causal, window):
 #: attention) and of granite-moe-1b-a400m's DevFT path
 FLASH_PATH = "path B4 S1024 H32 D128 causal bf16"
 FLASH_GRANITE = "granite B4 S1024 H16/8 D64 causal bf16"
+#: jamba-v0.1-52b's attention layer on its DevFT path
+FLASH_JAMBA = "jamba B4 S1024 H32/8 D128 causal bf16"
 
 
 def _denominators(q, k, v, scale):
@@ -733,6 +808,7 @@ def attention_phase(flash_attention_bshd, attention_bshd_ref,
         ("ragged S300 gqa causal f32", 2, 300, 8, 2, 64, True, None, f32,
          "randn"),
         (FLASH_GRANITE, 4, 1024, 16, 8, 64, True, None, bf16, "randn"),
+        (FLASH_JAMBA, 4, 1024, 32, 8, 128, True, None, bf16, "randn"),
         ("ragged S1000 window 300 D64 bf16", 2, 1000, 4, 2, 64, True, 300,
          bf16, "randn"),
         # q, k, v as strided views of one (B, S, 3H, D) tensor
@@ -812,7 +888,7 @@ def attention_phase(flash_attention_bshd, attention_bshd_ref,
                           bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=library_ms, variant=p.variant)
         extra = ""
-        if name in (FLASH_PATH, FLASH_GRANITE):
+        if name in (FLASH_PATH, FLASH_GRANITE, FLASH_JAMBA):
             # the first design on the same inputs
             scale = d ** -0.5
             old = plan(b, s, h, hkv, d, dt, causal, window,
@@ -887,6 +963,15 @@ ARCH_CONFIGS = {
                    c.mamba.d_state, c.mamba.head_dim, c.vocab, c.dtype),
         (32, 4096, 32, 8, 128, 16, 2, 14336, 14336, 16, 64, 65536,
          "bfloat16")),
+    "deepseek-v3-671b": (
+        lambda c: (c.n_layers, c.d_model, c.n_heads, c.attn_kind,
+                   c.mla.q_lora_rank, c.mla.kv_lora_rank,
+                   c.mla.qk_rope_head_dim, c.mla.qk_nope_head_dim,
+                   c.mla.v_head_dim, c.moe.n_experts, c.moe.top_k,
+                   c.moe.d_ff_expert, c.moe.n_shared_experts,
+                   c.moe.first_dense_layers, c.d_ff, c.vocab, c.dtype),
+        (61, 7168, 128, "mla", 1536, 512, 64, 128, 128, 256, 8, 2048, 1, 3,
+         18432, 129280, "bfloat16")),
 }
 
 
@@ -908,13 +993,19 @@ SERVE_ARCHS = {
     # depth is ~104 GB in bf16
     "jamba-v0.1-52b": (
         {"flash_decode_bhrd": 1, "moe_expert_ffn_ecd": 4}, 8, 256),
+    # 5 of 61 layers (the 3 dense and 2 MoE: 53.3 GB in bf16, of which
+    # 45.1 GB the two layers' experts); the full depth is ~1.3 TB
+    "deepseek-v3-671b": (
+        {"flash_decode_bhrd": 5, "moe_expert_ffn_ecd": 2}, 5, 256),
 }
 
 
-def _check_serve_launches(tag, per_step, steps, dtype=torch.bfloat16):
+def _check_serve_launches(tag, per_step, steps, dtype=torch.bfloat16,
+                          fd_variant=None):
     """The decode path's launches since the last reset: each kernel
     ``per_step[name]`` times a step, every other one none; in bf16
-    ``flash_decode`` on ``tma_mma`` and ``moe_expert_ffn`` on ``wgmma``,
+    ``flash_decode`` on ``tma_mma`` (``fd_variant`` where the decode
+    plans another: MLA's ``fma``) and ``moe_expert_ffn`` on ``wgmma``,
     in f32 both on ``fma``; ``moe_expert_ffn`` always with a fill,
     unpadded."""
     kernels = _path_kernels()
@@ -925,6 +1016,7 @@ def _check_serve_launches(tag, per_step, steps, dtype=torch.bfloat16):
     bf16 = dtype == torch.bfloat16
     fd, moe = kernels[0], kernels[3]
     want_fd, want_moe = ("tma_mma", "wgmma") if bf16 else ("fma", "fma")
+    want_fd = fd_variant or want_fd
     check(dict(fd.variants) == ({want_fd: fd.launches} if fd.launches
                                 else {}),
           f"{tag}: flash_decode variants {dict(fd.variants)}")
@@ -969,9 +1061,8 @@ def serve_arch_phase(arch, seed: int = 0):
                            kv_capacity=capacity)
     torch.cuda.synchronize()
     sizes = T.stack_sizes(params["blocks"])
-    cut = (f"; DEPTH CUT to {depth} of {full_depth} layers (one "
-           f"interleave period, stacks {sizes}), widths unreduced"
-           if depth else "")
+    cut = (f"; DEPTH CUT to {depth} of {full_depth} layers (stacks "
+           f"{sizes}), widths unreduced" if depth else "")
     print(f"[{tag}] full width: "
           f"{sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B params "
           f"({sum(p.numel() * p.element_size() for p in _leaves(params)) / 1e9:.2f}"
@@ -994,7 +1085,8 @@ def serve_arch_phase(arch, seed: int = 0):
         engine.step()
         steps += 1
     wall = time.perf_counter() - t0
-    launches = _check_serve_launches(tag, per_step, steps)
+    launches = _check_serve_launches(
+        tag, per_step, steps, fd_variant=_decode_variant(cfg, torch.bfloat16))
     check(all(r.done for r in reqs), f"{tag}: not every request finished")
     for r in reqs:
         check(len(r.tokens) == gen_len
@@ -1101,14 +1193,14 @@ def _profile(tag, what, fn, n=1):
 
 #: the reduced archs whose greedy tokens the card and the CPU must agree on
 PARITY_ARCHS = ("qwen2-7b", "granite-moe-1b-a400m", "mamba2-2.7b",
-                "jamba-v0.1-52b")
+                "jamba-v0.1-52b", "deepseek-v3-671b")
 
 
 def parity_phase(seed: int = 0):
-    """Reduced qwen2-7b, granite-moe-1b-a400m, mamba2-2.7b and
-    jamba-v0.1-52b in f32: the card (kernels) and the CPU (plain
-    versions) give the same greedy tokens through the multi-tenant
-    engine, with slot recycling."""
+    """Reduced qwen2-7b, granite-moe-1b-a400m, mamba2-2.7b,
+    jamba-v0.1-52b and deepseek-v3-671b in f32: the card (kernels) and
+    the CPU (plain versions) give the same greedy tokens through the
+    multi-tenant engine, with slot recycling."""
     import dataclasses
 
     from repro_torch.configs import get_config, reduce_config
@@ -1164,11 +1256,15 @@ PVD_TOL = 1e-3
 PVD_VARIANTS = {"flash_decode_bhrd": "fma", "lora_matmul_fused": "fma_f32",
                 "flash_attention_bshd": "fma_f32",
                 "moe_expert_ffn_ecd": "fma", "ssd_scan_bshp": "fma"}
-#: arch -> (layers, batch, prefill length); full width, f32
+#: arch -> (layers, batch, prefill length); full width, f32.
+#: deepseek-v3-671b's 3 layers are its dense MLA prefix (an empty MoE
+#: stack): prefill expands k and v from the latent, decoding attends over
+#: it in the absorbed formulation (``flash_decode`` at hd 576, vd 512)
 PVD_CASES = {
     "mamba2-2.7b": (4, 2, 300),
     "granite-moe-1b-a400m": (4, 2, 64),
     "jamba-v0.1-52b": (8, 2, 48),
+    "deepseek-v3-671b": (3, 2, 48),
 }
 
 
@@ -1204,6 +1300,7 @@ def prefill_vs_decode_phase(seed: int = 0):
             n_of[kinds[name]] += 1
         n_mamba = sum(v for k, v in n_of.items() if k.startswith("mamba"))
         n_attn = sum(v for k, v in n_of.items() if k.startswith("gqa"))
+        n_mla = sum(v for k, v in n_of.items() if k.startswith("mla"))
         n_moe = sum(v for k, v in n_of.items() if k.endswith("moe"))
         rng = np.random.default_rng(np.random.SeedSequence((seed, 23)))
         tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).cuda()
@@ -1215,7 +1312,7 @@ def prefill_vs_decode_phase(seed: int = 0):
         prefill_s = time.perf_counter() - t0
         pre = {fn.__name__: fn.launches for fn in _path_kernels()}
         check(pre == {"flash_decode_bhrd": 0,
-                      "lora_matmul_fused": 2 * (n_mamba + n_attn),
+                      "lora_matmul_fused": 2 * (n_mamba + n_attn + n_mla),
                       "flash_attention_bshd": n_attn,
                       "moe_expert_ffn_ecd": n_moe,
                       "ssd_scan_bshp": n_mamba},
@@ -1233,7 +1330,7 @@ def prefill_vs_decode_phase(seed: int = 0):
                                            tokens[:, i:i + 1], cache)
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
-        _check_serve_launches(tag, {"flash_decode_bhrd": n_attn,
+        _check_serve_launches(tag, {"flash_decode_bhrd": n_attn + n_mla,
                                     "moe_expert_ffn_ecd": n_moe}, s,
                               torch.float32)
         live = slice(0, cfg.vocab)
@@ -1242,7 +1339,8 @@ def prefill_vs_decode_phase(seed: int = 0):
               and row <= PVD_TOL,
               f"{tag}: row-scaled error {row} > {PVD_TOL} (abs {err})")
         print(f"[pvd] {arch} f32 full width, {layers} layers ({n_mamba} "
-              f"Mamba, {n_attn} attention, {n_moe} MoE), B{b} S{s}: prefill "
+              f"Mamba, {n_attn} attention, {n_mla} MLA, {n_moe} MoE), B{b} "
+              f"S{s}: prefill "
               f"{prefill_s * 1e3:.1f} ms through the kernels {pre}, all on "
               f"their f32 variants; "
               f"teacher-forced decode {s} steps {decode_s:.2f} s; last-token "
@@ -1458,10 +1556,18 @@ MOE_PATH = "path E32 C1280 d1024 ff512 bf16"
 #: 1b-a400m and jamba-v0.1-52b
 MOE_DECODE_GRANITE = "granite decode E32 C8 d1024 ff512 bf16"
 MOE_DECODE_JAMBA = "jamba decode E16 C8 d4096 ff14336 bf16"
+#: deepseek-v3-671b's at 8 slots (256 experts, top 8, capacity 8)
+MOE_DECODE_DEEPSEEK = "deepseek decode E256 C8 d7168 ff2048 bf16"
+#: one MoE layer of the DevFT training steps (4 x 1024 tokens):
+#: jamba-v0.1-52b (top 2 of 16, capacity 640) and deepseek-v3-671b (top 8
+#: of 256, capacity 160)
+MOE_JAMBA = "jamba train E16 C640 d4096 ff14336 bf16"
+MOE_DEEPSEEK = "deepseek train E256 C160 d7168 ff2048 bf16"
 #: every moe_expert_ffn shape a serving phase launches, bf16: (experts,
 #: capacity, d, ff) -> the kernel phase's case that holds it
 SERVED_MOE = {(32, 8, 1024, 512): MOE_DECODE_GRANITE,
-              (16, 8, 4096, 14336): MOE_DECODE_JAMBA}
+              (16, 8, 4096, 14336): MOE_DECODE_JAMBA,
+              (256, 8, 7168, 2048): MOE_DECODE_DEEPSEEK}
 
 
 def _check_moe_variant(moe_expert_ffn_ecd, tag):
@@ -1510,6 +1616,11 @@ def moe_phase(moe_expert_ffn_ecd, moe_expert_ffn_ref, seed: int = 0):
         # boxes run past C (rows load as zeros, stores are clipped)
         (MOE_DECODE_GRANITE, 32, 8, 1024, 512, bf16, True, "wgmma"),
         (MOE_DECODE_JAMBA, 16, 8, 4096, 14336, bf16, True, "wgmma"),
+        (MOE_DECODE_DEEPSEEK, 256, 8, 7168, 2048, bf16, True, "wgmma"),
+        (MOE_JAMBA, 16, 640, 4096, 14336, bf16, False, "wgmma"),
+        # 22.5 GB of expert weights: the f32-inside version is built
+        # 16 experts at a time
+        (MOE_DEEPSEEK, 256, 160, 7168, 2048, bf16, False, "wgmma"),
     ]
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -1544,8 +1655,9 @@ def moe_phase(moe_expert_ffn_ecd, moe_expert_ffn_ref, seed: int = 0):
         out = moe_expert_ffn_ecd(buf, wg, wu, wd)
         again = moe_expert_ffn_ecd(buf, wg, wu, wd)
         want = moe_expert_ffn_ref(buf, wg, wu, wd)
-        f32 = moe_expert_ffn_ref(buf.float(), wg.float(), wu.float(),
-                                 wd.float())
+        f32 = torch.cat([moe_expert_ffn_ref(
+            buf[i:i + 16].float(), wg[i:i + 16].float(), wu[i:i + 16].float(),
+            wd[i:i + 16].float()) for i in range(0, e, 16)])
         torch.cuda.synchronize()
         check(dict(moe_expert_ffn_ecd.variants) == {want_variant: 2},
               f"moe {name}: calls by variant "
@@ -1659,6 +1771,7 @@ def moe_phase(moe_expert_ffn_ecd, moe_expert_ffn_ref, seed: int = 0):
               f"{host_us:.1f} us per call; {per_call:g} CUDA kernels per "
               f"call{extra}")
         del buf, wg, wu, wd, out, again, want, f32
+        torch.cuda.empty_cache()
     del flush
     return rows
 
@@ -1709,6 +1822,8 @@ def _ssd_flops(bsz, s, h, p, n, chunk):
 #: the ssd_scan case of the ``kernels`` line: one Mamba-2 layer of the
 #: mamba2-2.7b training step
 SSD_PATH = "path B4 S1024 H80 P64 N128 G1 c256 bf16"
+#: one Mamba-2 layer of jamba-v0.1-52b's DevFT step (d_inner 8192)
+SSD_JAMBA = "jamba path B4 S1024 H128 P64 N16 G1 c256 bf16"
 
 
 def _check_ssd_variant(ssd_scan_bshp, tag):
@@ -1742,6 +1857,8 @@ def ssd_phase(ssd_scan_bshp, ssd_chunked_ref, ssd_oracle, seed: int = 0):
     cases = [  # name, B, S, H, P, G, N, chunk, dtype, decay, empty dt
         # rows, x/b/c offset (elements) in the conv output, variant
         (SSD_PATH, 4, 1024, 80, 64, 1, 128, 256, bf16, "model", False, 0,
+         "mma"),
+        (SSD_JAMBA, 4, 1024, 128, 64, 1, 16, 256, bf16, "model", False, 0,
          "mma"),
         ("path B4 S1024 H80 P64 N128 G1 c256 f32", 4, 1024, 80, 64, 1, 128,
          256, f32, "model", False, 0, "fma"),
@@ -1876,38 +1993,31 @@ def ssd_phase(ssd_scan_bshp, ssd_chunked_ref, ssd_oracle, seed: int = 0):
     return rows
 
 
-def devft_phase(arch, want_caps, per_layer, want_forward_layers,
-                seed: int = 0):
+def devft_phase(arch, want_caps, per_kind, want_forward_layers,
+                depth=None, seed: int = 0):
     """DevFT on ``arch`` at full width through the training entry point
     (the CLI's own spec resolution, then ``run_experiment``): four
     stages of one round each, capacities ``want_caps``, on the widths
-    ``ARCH_CONFIGS`` holds; ``per_layer`` maps each wrapper to its
-    launches per layer per forward (the rest must launch none), and the
-    run makes ``want_forward_layers`` layer-forwards in all. Returns
-    (launches by wrapper, the ``RunResult``, the run's base params)."""
+    ``ARCH_CONFIGS`` holds, the depth cut to ``depth`` layers where given
+    (the spec's config is cut, every width kept); ``per_kind`` maps each
+    block kind to its wrappers' launches per layer per forward (the rest
+    must launch none), and the run makes ``want_forward_layers``
+    layer-forwards in all. Returns (launches by wrapper, the
+    ``RunResult``, the run's base params, its config)."""
     import dataclasses
 
-    from repro_torch.core import make_groups, similarity_matrix
+    from repro_torch.core import similarity_matrix
     from repro_torch.core.grouping import layer_vectors, spectral_grouping
     from repro_torch.experiments import run_experiment
+    from repro_torch.experiments.spec import ExperimentSpec
     from repro_torch.federated import simulator
     from repro_torch.federated.client import make_local_train
     from repro_torch.federated.methods.devft import DevFT
     from repro_torch.interop import tree_map
-    from repro_torch.kernels.flash_attention import flash_attention_bshd
-    from repro_torch.kernels.flash_attention import (
-        reset_counts as reset_flash_counts)
-    from repro_torch.kernels.flash_decode import flash_decode_bhrd
-    from repro_torch.kernels.lora_matmul import (lora_matmul_fused,
-                                                 reset_counts)
-    from repro_torch.kernels.moe_ffn import moe_expert_ffn_ecd
-    from repro_torch.kernels.ssd_scan import ssd_scan_bshp
-    from repro_torch.kernels.moe_ffn import reset_counts as reset_moe_counts
-    from repro_torch.kernels.ssd_scan import (
-        reset_counts as reset_ssd_counts)
     from repro_torch.launch import train
     from repro_torch.models import transformer as T
 
+    tag = f"devft {arch}"
     argv = ["--arch", arch, "--full", "--method", "devft",
             "--rounds", "4", "--n-stages", "4", "--n-clients", "20",
             "--sample-frac", "0.1", "--k-local", "2", "--local-batch", "4",
@@ -1916,15 +2026,18 @@ def devft_phase(arch, want_caps, per_layer, want_forward_layers,
     spec = train.spec_from_args(train.build_parser().parse_args(argv))
     cfg = spec.build_cfg()
     _check_config(arch, cfg)
+    full_depth = cfg.n_layers
+    build_cfg = ExperimentSpec.build_cfg
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
     k, b, s = spec.k_local, spec.local_batch, spec.seq
+    kinds = T.stack_kinds(cfg)
 
     # instrumentation, removed at the end: each stage's submodel build
     # (DGLG + DBLF on the card) and each client's K local steps, timed
     # with a synchronize on both sides; round 0's eval inputs, kept for
     # the reference-backend check
     stages, evals, base = [], [], {}
-    on_stage, make_local, ev = (DevFT.on_stage, simulator.make_local_train,
-                                simulator.FederatedRunner._eval)
 
     def timed_on_stage(self, state, stage):
         if stages:
@@ -1936,10 +2049,10 @@ def devft_phase(arch, want_caps, per_layer, want_forward_layers,
         torch.cuda.synchronize()
         sub = state["sub"]
         stages.append(dict(stage=stage, capacity=sub.capacity,
+                           sizes=T.stack_sizes(sub.params["blocks"]),
                            build_s=time.perf_counter() - t0,
-                           plan=sub.plan["layers"]["groups"],
-                           lora_in=tree_map(lambda t: t.cpu(),
-                                            state["lora"]["layers"]),
+                           plan={n: p["groups"] for n, p in sub.plan.items()},
+                           lora_in=tree_map(lambda t: t.cpu(), state["lora"]),
                            params=state["params"], local_s=[]))
 
     def timed_make_local(sub_cfg, **kw):
@@ -1961,22 +2074,23 @@ def devft_phase(arch, want_caps, per_layer, want_forward_layers,
             base["params"] = self.params
         return out
 
-    kernels = (flash_decode_bhrd, lora_matmul_fused, flash_attention_bshd,
-               moe_expert_ffn_ecd, ssd_scan_bshp)
-    DevFT.on_stage = timed_on_stage
-    simulator.make_local_train = timed_make_local
-    simulator.FederatedRunner._eval = kept_eval
-    try:
-        for fn in kernels:
-            fn.launches = 0
-        reset_counts()
-        reset_flash_counts()
-        reset_ssd_counts()
-        reset_moe_counts()
+    on_stage, make_local, ev = (DevFT.on_stage, simulator.make_local_train,
+                                simulator.FederatedRunner._eval)
+    patches = [(DevFT, "on_stage", timed_on_stage),
+               (simulator, "make_local_train", timed_make_local),
+               (simulator.FederatedRunner, "_eval", kept_eval)]
+    if depth:
+        patches.append((ExperimentSpec, "build_cfg",
+                        lambda self: dataclasses.replace(build_cfg(self),
+                                                         n_layers=depth)))
+    kernels = _path_kernels()
+    with _patched(*patches):
+        _reset_all_counts()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         result = run_experiment(spec, device="cuda", dtype=torch.bfloat16,
                                 round_progress=lambda log: print(
-                                    f"[devft] round {log.round} stage "
+                                    f"[{tag}] round {log.round} stage "
                                     f"{log.stage} cap {log.capacity:2d} "
                                     f"eval loss {log.eval_loss:.4f} acc "
                                     f"{log.eval_acc:.4f} up "
@@ -1986,49 +2100,56 @@ def devft_phase(arch, want_caps, per_layer, want_forward_layers,
         wall = time.perf_counter() - t0
         stages[-1]["peak"] = torch.cuda.max_memory_allocated()
         launches = {fn.__name__: fn.launches for fn in kernels}
-    finally:
-        DevFT.on_stage = on_stage
-        simulator.make_local_train = make_local
-        simulator.FederatedRunner._eval = ev
 
     caps = [st["capacity"] for st in stages]
-    check(caps == want_caps, f"stage capacities {caps}")
+    check(caps == want_caps, f"{tag}: stage capacities {caps}")
     check([log.capacity for log in result.logs] == caps,
-          f"round capacities {[log.capacity for log in result.logs]}")
+          f"{tag}: round capacities {[log.capacity for log in result.logs]}")
     n_clients = max(1, int(spec.n_clients * spec.sample_frac))
-    # every forward runs each kernel of a layer per_layer times per layer
-    # (lora_matmul twice: W_q and W_v, or in_proj and out_proj):
-    # n_clients x K local steps and one eval per round, one round per
-    # stage; the backward and DGLG/DBLF launch none
-    forwards_layers = (n_clients * k + 1) * sum(caps)
-    want = {fn.__name__: per_layer.get(fn.__name__, 0) * forwards_layers
-            for fn in kernels}
-    check(launches == want, f"launches {launches}, want {want}")
-    _check_lora_variants(lora_matmul_fused, "devft")
-    _check_flash_variant(flash_attention_bshd, "devft")
-    _check_ssd_variant(ssd_scan_bshp, "devft")
-    _check_moe_variant(moe_expert_ffn_ecd, "devft")
+    # every forward runs each kernel of a layer per_kind[kind] times per
+    # layer of that kind (lora_matmul twice: W_q and W_v, in_proj and
+    # out_proj, or W_q_b and W_kv_b): n_clients x K local steps and one
+    # eval per round, one round per stage; the backward and DGLG/DBLF
+    # launch none
+    want = {fn.__name__: 0 for fn in kernels}
+    forwards_layers = 0
+    for st in stages:
+        for name, n in st["sizes"].items():
+            forwards_layers += (n_clients * k + 1) * n
+            for fn_name, per in per_kind.get(kinds[name], {}).items():
+                want[fn_name] += (n_clients * k + 1) * n * per
+    check(launches == want, f"{tag}: launches {launches}, want {want}")
+    _check_lora_variants(kernels[1], tag)
+    _check_flash_variant(kernels[2], tag)
+    _check_ssd_variant(kernels[4], tag)
+    _check_moe_variant(kernels[3], tag)
     check(forwards_layers == want_forward_layers,
-          f"{forwards_layers} forward layers")
+          f"{tag}: {forwards_layers} forward layers")
     for log in result.logs:
         check(np.isfinite(log.eval_loss) and 0 <= log.eval_acc <= 1,
-              f"round {log.round}: eval {log.eval_loss} {log.eval_acc}")
+              f"{tag}: round {log.round}: eval {log.eval_loss} "
+              f"{log.eval_acc}")
     check(all(bool(torch.isfinite(t).all())
-              for t in _leaves(result.final_lora)), "non-finite final LoRA")
-    print(f"[devft] {arch} full width, bf16 params, rank-"
-          f"{spec.lora_rank} f32 LoRA, {spec.rounds} rounds of {n_clients} "
-          f"clients x {k} local steps x {b} x {s} tokens: wall {wall:.1f} s; "
-          f"launches {launches}")
+              for t in _leaves(result.final_lora)),
+          f"{tag}: non-finite final LoRA")
+    cut = (f", DEPTH CUT to {depth} of {full_depth} layers (stacks "
+           f"{dict(cfg.layer_stacks())}), widths unreduced" if depth else "")
+    print(f"[{tag}] full width{cut}, bf16 params, rank-{spec.lora_rank} f32 "
+          f"LoRA, {spec.rounds} rounds of {n_clients} clients x {k} local "
+          f"steps x {b} x {s} tokens: wall {wall:.1f} s; launches "
+          f"{launches}")
     for st in stages:
         t = st["local_s"]
-        check(len(t) == n_clients, f"stage {st['stage']}: {len(t)} clients")
+        check(len(t) == n_clients, f"{tag}: stage {st['stage']}: {len(t)} "
+              f"clients")
         step_ms = 1e3 * t[-1] / k
-        print(f"[devft] stage {st['stage']} capacity {st['capacity']:2d}: "
-              f"submodel build (DGLG + DBLF) {st['build_s'] * 1e3:.1f} ms; "
-              f"local steps {', '.join(f'{1e3 * x / k:.1f}' for x in t)} ms "
-              f"per step (first client includes first use), "
-              f"{step_ms:.1f} ms per step, {k * b * s / t[-1]:.0f} tokens/s; "
-              f"peak {st['peak'] / 2**30:.2f} GiB")
+        print(f"[{tag}] stage {st['stage']} capacity {st['capacity']:2d} "
+              f"(layers by stack {st['sizes']}): submodel build (DGLG + "
+              f"DBLF) {st['build_s'] * 1e3:.1f} ms; local steps "
+              f"{', '.join(f'{1e3 * x / k:.1f}' for x in t)} ms per step "
+              f"(first client includes first use), {step_ms:.1f} ms per "
+              f"step, {k * b * s / t[-1]:.0f} tokens/s; peak "
+              f"{st['peak'] / 2**30:.2f} GiB")
 
     # one local step of the full model under the profiler
     full = stages[-1]["params"]
@@ -2037,10 +2158,11 @@ def devft_phase(arch, want_caps, per_layer, want_forward_layers,
     one = {key: rng.integers(0, cfg.vocab, (1, b, s), dtype=np.int32)
            for key in ("tokens", "labels")}
     local = make_local_train(cfg)
-    local(full, {"layers": lora}, one, spec.lr)
-    _profile("devft", f"one profiled local step at capacity {caps[-1]} "
+    local(full, lora, one, spec.lr)
+    _profile(tag, f"one profiled local step at capacity {caps[-1]} "
              f"(forward, backward, AdamW)",
-             lambda: local(full, {"layers": lora}, one, spec.lr))
+             lambda: local(full, lora, one, spec.lr))
+    del lora
 
     # round 0's eval loss: through the kernels vs the plain versions
     cfg0, params0, lora0, batch0, (loss0, _) = evals[0]
@@ -2049,57 +2171,66 @@ def devft_phase(arch, want_caps, per_layer, want_forward_layers,
             cfg0, kernel_backend="reference"), params0, lora0, batch0)
     plain = m["loss"]                    # the logged eval loss, aux apart
     rel = abs(loss0 - float(plain)) / abs(float(plain))
-    check(loss0 == result.logs[0].eval_loss, "round 0 eval loss not logged")
-    check(rel <= 1e-2, f"round 0 eval loss: kernels {loss0} vs plain "
-          f"{float(plain)} (rel {rel})")
-    print(f"[devft] round 0 eval loss (capacity {cfg0.n_layers}, 16 x {s} "
+    check(loss0 == result.logs[0].eval_loss,
+          f"{tag}: round 0 eval loss not logged")
+    check(rel <= 1e-2, f"{tag}: round 0 eval loss: kernels {loss0} vs "
+          f"plain {float(plain)} (rel {rel})")
+    print(f"[{tag}] round 0 eval loss (capacity {caps[0]}, 16 x {s} "
           f"tokens): kernels {loss0:.5f}, plain versions {float(plain):.5f}, "
           f"rel diff {rel:.3g} (tol 1e-2)")
+    del evals, params0, lora0, batch0, m
 
-    # DGLG group lists: the card's against the CPU port's on the same
-    # tensors; a difference is reported with the similarities, the
-    # Laplacian's eigen-gap, and the host clustering of the card's own W
-    # (the clustering always runs on the host in f64, so only W's f32
+    # DGLG group lists of every stack a stage cut: the card's against the
+    # CPU port's on the same tensors; a difference is reported with the
+    # similarities, the Laplacian's eigen-gap, and the host clustering of
+    # the card's own W (the clustering always runs on the host in f64,
+    # and the layer vectors are an exact subsample, so only W's f32
     # rounding differs between the two)
-    stack_cpu = tree_map(lambda t: t.cpu(), full["blocks"]["layers"])
     for st in stages[:-1]:
-        lo_cpu = st["lora_in"]
-        w_cpu = similarity_matrix(layer_vectors(stack_cpu, lo_cpu))
-        w_card = similarity_matrix(layer_vectors(
-            full["blocks"]["layers"],
-            tree_map(lambda t: t.cuda(), lo_cpu))).cpu()
-        groups = make_groups("dglg", stack_cpu, lo_cpu, st["capacity"],
-                             seed=(spec.seed, st["stage"]))
-        w = w_cpu.double().numpy().copy()
-        np.fill_diagonal(w, 0.0)
-        ev_ = np.linalg.eigvalsh(np.diag(w.sum(1)) - w)
-        gap = ev_[st["capacity"]] - ev_[st["capacity"] - 1]
-        same = groups == st["plan"]
-        if not same:
-            again = spectral_grouping(w_card, st["capacity"],
-                                      seed=(spec.seed, st["stage"]))
-            same_w = "equal to the card" if again == st["plan"] else again
-            groups = f"{groups} (host clustering of the card's W: {same_w})"
-        print(f"[devft] stage {st['stage']} groups (card) {st['plan']}; CPU "
-              f"port {'equal' if same else groups}; max |W card - W cpu| "
-              f"{float((w_card - w_cpu).abs().max()):.3g}, W in "
-              f"[{float(w_cpu.min()):.4f}, {float(w_cpu.max()):.4f}], "
-              f"eigen-gap {gap:.3g} (eigenvalues {ev_[st['capacity'] - 1]:.5g}"
-              f" and {ev_[st['capacity']]:.5g}, largest {ev_[-1]:.5g})")
-    del stages, evals, full
-    return launches, result, base["params"]
+        for name, groups_card in st["plan"].items():
+            n_groups = len(groups_card)
+            if n_groups == T.stack_sizes(full["blocks"])[name]:
+                continue                         # this stack was not cut
+            lo_card = tree_map(lambda t: t.cuda(), st["lora_in"][name])
+            vec = layer_vectors(full["blocks"][name], lo_card)
+            w_card = similarity_matrix(vec).cpu()
+            w_cpu = similarity_matrix(vec.cpu())
+            del vec, lo_card
+            seed_ = (spec.seed, st["stage"])
+            groups = spectral_grouping(w_cpu, n_groups, seed=seed_)
+            w = w_cpu.double().numpy().copy()
+            np.fill_diagonal(w, 0.0)
+            ev_ = np.linalg.eigvalsh(np.diag(w.sum(1)) - w)
+            gap = ev_[n_groups] - ev_[n_groups - 1]
+            same = groups == groups_card
+            if not same:
+                again = spectral_grouping(w_card, n_groups, seed=seed_)
+                same_w = "equal to the card" if again == groups_card \
+                    else again
+                groups = (f"{groups} (host clustering of the card's W: "
+                          f"{same_w})")
+            print(f"[{tag}] stage {st['stage']} {name} groups (card) "
+                  f"{groups_card}; CPU port {'equal' if same else groups}; "
+                  f"max |W card - W cpu| "
+                  f"{float((w_card - w_cpu).abs().max()):.3g}, W in "
+                  f"[{float(w_cpu.min()):.4f}, {float(w_cpu.max()):.4f}], "
+                  f"eigen-gap {gap:.3g} (eigenvalues "
+                  f"{ev_[n_groups - 1]:.5g} and {ev_[n_groups]:.5g}, "
+                  f"largest {ev_[-1]:.5g})")
+    del stages, full
+    return launches, result, base["params"], cfg
 
 
-def devft_serve_phase(arch, result, params, per_step):
+def devft_serve_phase(arch, result, params, cfg, per_step):
     """The train->serve hand-off on a DevFT run at full width: its final
     ``global`` adapter (``registry_from_run(..., personalize=False)``)
-    served on the run's base params, 4 requests of 16 prompt and 8
-    generated tokens, with the serving phases' launch checks."""
+    served on the run's base params (``cfg`` the run's config, its depth
+    cut where the run's was), 4 requests of 16 prompt and 8 generated
+    tokens, with the serving phases' launch checks."""
     from repro_torch.interop import tree_paths
     from repro_torch.serving import ServingEngine, registry_from_run
 
     tag = f"devft serve {arch}"
-    cfg = result.spec.build_cfg()
     reg = registry_from_run(result, params, personalize=False)
     check(reg.ids() == ["global"], f"{tag}: registry ids {reg.ids()}")
     check(all(torch.equal(a, b) for a, b in zip(
@@ -2122,7 +2253,8 @@ def devft_serve_phase(arch, result, params, per_step):
         engine.step()
         steps += 1
     wall = time.perf_counter() - t0
-    launches = _check_serve_launches(tag, per_step, steps)
+    launches = _check_serve_launches(
+        tag, per_step, steps, fd_variant=_decode_variant(cfg, torch.bfloat16))
     held = _held_cases(cfg, n_slots, capacity, launches)
     for r in reqs:
         check(r.done and len(r.tokens) == 8
@@ -2567,6 +2699,34 @@ def handoff_phase(seed: int = 0):
     _reset_all_counts()
 
 
+#: the DevFT phases, in order: (arch, stage capacities, launches per layer
+#: per forward by block kind, layer-forwards in all, the depth trained
+#: (None: the config's), the served global adapter's launches per engine
+#: step)
+_ATTN = {"lora_matmul_fused": 2, "flash_attention_bshd": 1}
+_MAMBA = {"lora_matmul_fused": 2, "ssd_scan_bshp": 1}
+DEVFT_RUNS = [
+    ("granite-moe-1b-a400m", [3, 6, 12, 24],
+     {"gqa_moe": dict(_ATTN, moe_expert_ffn_ecd=1)}, 225, None,
+     SERVE_ARCHS["granite-moe-1b-a400m"][0]),
+    ("mamba2-2.7b", [8, 16, 32, 64], {"mamba_only": _MAMBA}, 600, None,
+     SERVE_ARCHS["mamba2-2.7b"][0]),
+    # one interleave period (8 of 32 layers): stacks mamba_mlp / mamba_moe /
+    # attn_mlp (1, 1, 1), (1, 1, 1), (2, 1, 1), (3, 4, 1); 25.6 GB in bf16
+    ("jamba-v0.1-52b", [1, 2, 4, 8],
+     {"mamba_mlp": _MAMBA, "mamba_moe": dict(_MAMBA, moe_expert_ffn_ecd=1),
+      "gqa_mlp": _ATTN}, 90, 8,
+     {"flash_decode_bhrd": 1, "moe_expert_ffn_ecd": 4}),
+    # 4 of 61 layers, the 3 dense and 1 MoE (29.7 GB in bf16, 22.5 GB of
+    # it the experts): stacks dense / moe (1, 1), (1, 1), (2, 1), (3, 1);
+    # the MoE stack is never cut, so no stage copies its experts
+    ("deepseek-v3-671b", [1, 2, 3, 4],
+     {"mla_mlp": {"lora_matmul_fused": 2},
+      "mla_moe": {"lora_matmul_fused": 2, "moe_expert_ffn_ecd": 1}}, 55, 4,
+     {"flash_decode_bhrd": 4, "moe_expert_ffn_ecd": 1}),
+]
+
+
 def _leaves(tree):
     from repro_torch.interop import tree_leaves
     return tree_leaves(tree)
@@ -2613,21 +2773,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     handoff_phase()
     torch.cuda.empty_cache()
-    granite_launches, result, base = devft_phase(
-        "granite-moe-1b-a400m", [3, 6, 12, 24],
-        {"lora_matmul_fused": 2, "flash_attention_bshd": 1,
-         "moe_expert_ffn_ecd": 1}, 225)
-    devft_serve_phase("granite-moe-1b-a400m", result, base,
-                      SERVE_ARCHS["granite-moe-1b-a400m"][0])
-    del result, base
-    torch.cuda.empty_cache()
-    mamba_launches, result, base = devft_phase(
-        "mamba2-2.7b", [8, 16, 32, 64],
-        {"lora_matmul_fused": 2, "ssd_scan_bshp": 1}, 600)
-    devft_serve_phase("mamba2-2.7b", result, base,
-                      SERVE_ARCHS["mamba2-2.7b"][0])
-    del result, base
-    torch.cuda.empty_cache()
+    devft_launches = {}
+    for arch, caps, per_kind, forward_layers, depth, per_step in DEVFT_RUNS:
+        devft_launches[arch], result, base, cfg = devft_phase(
+            arch, caps, per_kind, forward_layers, depth)
+        devft_serve_phase(arch, result, base, cfg, per_step)
+        del result, base
+        torch.cuda.empty_cache()
+
+    def cases(rows_, names, yardstick="library_ms"):
+        """The new path shapes' numbers for the kernels line."""
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                yardstick, "variant")
+        return {n: {k: rows_[n][k] for k in keys} for n in names}
+
+    def path_launches(name):
+        return {f"devft {arch}": n[name] for arch, n in devft_launches.items()
+                if n[name]}
 
     kernels = {"kernels": [
         dict(name="flash_decode", route="cuda",
@@ -2635,29 +2797,42 @@ def main() -> int:
              replaces="src/repro/kernels/flash_decode.py:135",
              launches=serve_launches["qwen2-7b"][0], **rows[DECODE_PATH],
              serve_launches={a: n[0] for a, n in serve_launches.items()
-                             if n[0]}),
+                             if n[0]},
+             cases=cases(rows, (DECODE_MLA, DECODE_MLA_DEVFT,
+                                DECODE_JAMBA_DEVFT))),
         dict(name="lora_matmul", route="cuda",
              source="src/repro_torch/kernels/csrc/lora_matmul.cu",
              replaces="src/repro/kernels/lora_matmul.py:94",
              launches=train_launches["lora_matmul_fused"],
-             build_s=build_s["lora_matmul"], **lora_rows[LORA_PATH]),
+             build_s=build_s["lora_matmul"], **lora_rows[LORA_PATH],
+             path_launches=path_launches("lora_matmul_fused"),
+             cases=cases(lora_rows, [n for n in lora_rows if n.startswith(
+                 ("jamba", "deepseek"))])),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:126",
              launches=train_launches["flash_attention_bshd"],
-             **flash_rows[FLASH_PATH]),
+             **flash_rows[FLASH_PATH],
+             path_launches=path_launches("flash_attention_bshd"),
+             cases=cases(flash_rows, (FLASH_JAMBA,))),
         dict(name="moe_expert_ffn", route="cuda",
              source="src/repro_torch/kernels/csrc/moe_ffn.cu",
              replaces="src/repro/kernels/moe_ffn.py:92",
-             launches=granite_launches["moe_expert_ffn_ecd"],
+             launches=devft_launches["granite-moe-1b-a400m"][
+                 "moe_expert_ffn_ecd"],
              **moe_rows[MOE_PATH],
              serve_launches={a: n[1] for a, n in serve_launches.items()
-                             if n[1]}),
+                             if n[1]},
+             path_launches=path_launches("moe_expert_ffn_ecd"),
+             cases=cases(moe_rows, (MOE_JAMBA, MOE_DEEPSEEK,
+                                    MOE_DECODE_DEEPSEEK), "bmm_ms")),
         dict(name="ssd_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:105",
-             launches=mamba_launches["ssd_scan_bshp"],
-             **ssd_rows[SSD_PATH]),
+             launches=devft_launches["mamba2-2.7b"]["ssd_scan_bshp"],
+             **ssd_rows[SSD_PATH],
+             path_launches=path_launches("ssd_scan_bshp"),
+             cases=cases(ssd_rows, (SSD_JAMBA,))),
     ]}
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

@@ -13,7 +13,9 @@ batch use.
 
 Every arch whose blocks decode in the port serves, reduced as the JAX
 package's CLI does: the dense ones, granite-moe-1b-a400m (MoE),
-mamba2-2.7b (Mamba-2) and jamba-v0.1-52b (the hybrid order).
+mamba2-2.7b (Mamba-2), jamba-v0.1-52b (the hybrid order) and
+deepseek-v3-671b (MLA, decoded in the absorbed formulation through
+``flash_decode``, and the MoE with its shared expert).
 
 Examples (``--device cpu`` runs the plain PyTorch versions):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
@@ -22,6 +24,8 @@ Examples (``--device cpu`` runs the plain PyTorch versions):
         --batch 2 --prompt-len 8 --gen 8 --merge-lora
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch jamba-v0.1-52b --batch 2 --prompt-len 8 --gen 8 --n-adapters 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch deepseek-v3-671b --batch 2 --prompt-len 4 --gen 3 --n-adapters 2
 """
 from __future__ import annotations
 

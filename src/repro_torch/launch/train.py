@@ -21,6 +21,10 @@ Example:
         --preset bench-tiny --rounds 2
     PYTHONPATH=src python -m repro_torch.launch.train --method devft \
         --arch granite-moe-1b-a400m --full --rounds 4 --n-stages 4
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --arch jamba-v0.1-52b --method devft --layers 8 --rounds 2
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --arch deepseek-v3-671b --method devft --rounds 2
     PYTHONPATH=src python -m repro_torch.launch.train --dump-spec > run.json
 """
 from __future__ import annotations

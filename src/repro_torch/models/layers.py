@@ -1,5 +1,6 @@
-"""Shared transformer primitives (dense half): RMSNorm, RoPE, grouped-
-query attention, the LoRA projection and the SwiGLU MLP.
+"""Shared transformer primitives: RMSNorm, RoPE, grouped-query
+attention, MLA (deepseek-v3's multi-head latent attention), the LoRA
+projection and the SwiGLU MLP.
 
 Kernel branches, as in the JAX package: ``attend`` sends calls that fit
 the flash kernel's contract (``_flash_eligible``) to ``flash_attention``,
@@ -26,7 +27,8 @@ which is what JAX's promotion gives for f32/bf16.
 
 ``gqa_decode`` writes the new K/V into the cache **in place** (JAX
 returns an updated copy) and routes the attention through the
-``flash_decode`` kernel for the device of its inputs.
+``flash_decode`` kernel for the device of its inputs; ``mla_decode``
+does the same with MLA's latent cache, in the absorbed formulation.
 """
 from __future__ import annotations
 
@@ -289,6 +291,153 @@ def init_gqa_cache(cfg, batch: int, capacity: int, dtype, device,
     shape = (*lead, batch, capacity, hkv, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen: torch.Generator, cfg, dtype, lead=()) -> dict:
+    """MLA projections: the query through a ``q_lora_rank`` bottleneck,
+    keys and values from a shared ``kv_lora_rank`` latent plus one rotary
+    key; ``lead`` prepends stack axes."""
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qh = m.qk_nope_head_dim + m.qk_rope_head_dim
+    dev = gen.device
+    sd = 1.0 / math.sqrt(d)
+    return {
+        "wq_a": _randn(gen, (*lead, d, m.q_lora_rank), dtype, sd),
+        "q_norm": torch.ones((*lead, m.q_lora_rank), dtype=dtype, device=dev),
+        "wq_b": _randn(gen, (*lead, m.q_lora_rank, h * qh), dtype,
+                       1.0 / math.sqrt(m.q_lora_rank)),
+        "wkv_a": _randn(gen, (*lead, d, m.kv_lora_rank + m.qk_rope_head_dim),
+                        dtype, sd),
+        "kv_norm": torch.ones((*lead, m.kv_lora_rank), dtype=dtype,
+                              device=dev),
+        "wkv_b": _randn(gen, (*lead, m.kv_lora_rank,
+                              h * (m.qk_nope_head_dim + m.v_head_dim)),
+                        dtype, 1.0 / math.sqrt(m.kv_lora_rank)),
+        "wo": _randn(gen, (*lead, h * m.v_head_dim, d), dtype,
+                     1.0 / math.sqrt(h * m.v_head_dim)),
+    }
+
+
+def _mla_q(params, cfg, x, cos, sin, lora=None, backend: str = "reference"):
+    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope) rotated). ``wq_b``'s
+    adapter reaches ``lora_matmul`` through ``_proj`` when a backend
+    asks for it (training, prefill); decoding passes none."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    lq = lora.get("wq_b") if lora else None
+    qc = rms_norm(_matmul(x, params["wq_a"]), params["q_norm"], cfg.norm_eps)
+    q = _proj(qc, params["wq_b"], None, lq, backend=backend)
+    q = q.reshape(b, s, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim,
+                                     m.qk_rope_head_dim], dim=-1)
+    return q_nope, apply_rope(q_rope, cos, sin)
+
+
+def _mla_ckv(params, cfg, x, cos, sin):
+    """(c (B,S,kv_lora_rank) normed, k_rope (B,S,rope) rotated, shared
+    by every head)."""
+    m = cfg.mla
+    ckv = _matmul(x, params["wkv_a"])
+    c, k_rope = torch.split(ckv, [m.kv_lora_rank, m.qk_rope_head_dim],
+                            dim=-1)
+    c = rms_norm(c, params["kv_norm"], cfg.norm_eps)
+    return c, apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0]
+
+
+def mla_attention(params: dict, cfg, x: torch.Tensor, cos, sin, *,
+                  lora=None, causal=True, window=None) -> torch.Tensor:
+    """Whole-sequence MLA (training, prefill), keys and values expanded
+    from the latent. v's head dim differs from q/k's, so ``attend``
+    keeps it on the plain path (``_flash_eligible``); the backend still
+    routes the ``wq_b``/``wkv_b`` adapters to ``lora_matmul``."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    backend = model_backend(cfg)
+    q_nope, q_rope = _mla_q(params, cfg, x, cos, sin, lora, backend=backend)
+    c, k_rope = _mla_ckv(params, cfg, x, cos, sin)
+    lkv = lora.get("wkv_b") if lora else None
+    kv = _proj(c, params["wkv_b"], None, lkv, backend=backend)
+    kv = kv.reshape(b, s, h, m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = torch.split(kv, [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, s, h, m.qk_rope_head_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = attend(q, k, v, causal=causal, window=window,
+                 scale=1.0 / math.sqrt(m.qk_nope_head_dim
+                                       + m.qk_rope_head_dim),
+                 backend=backend)
+    return _matmul(out.reshape(b, s, -1), params["wo"])
+
+
+def mla_decode(params: dict, cfg, x: torch.Tensor, cache: dict, pos, cos,
+               sin, *, lora=None):
+    """Single-token MLA in the absorbed formulation: the cache holds only
+    the latent ``c`` and the shared rotary key, the query's nope part is
+    absorbed into the latent through ``wkv_b``'s key half, and the
+    attention is one ``flash_decode`` call with q = [q_abs | q_rope]
+    (hd = kv_lora_rank + rope), one kv head [c | k_rope] and v = c (vd =
+    kv_lora_rank); its output is expanded through ``wkv_b``'s value
+    half. cache: {'c': (B, C, rank), 'k_rope': (B, C, rope)}, written in
+    place at each row's cursor ``pos % C``. A ``wkv_b`` adapter is
+    merged into the weight: 2-D, or per slot ``(B, rank, r)`` for a
+    per-slot up-projection."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    nope = m.qk_nope_head_dim
+    q_nope, q_rope = _mla_q(params, cfg, x, cos, sin, lora)   # (B,1,H,*)
+    c_new, k_rope_new = _mla_ckv(params, cfg, x, cos, sin)
+    c, kr = cache["c"], cache["k_rope"]
+    cap = c.shape[1]
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    slots = pos % cap
+    c[rows, slots] = c_new[:, 0].to(c.dtype)
+    kr[rows, slots] = k_rope_new[:, 0].to(kr.dtype)
+
+    wkv_b = params["wkv_b"]
+    if lora and "wkv_b" in lora:
+        la = lora["wkv_b"]
+        wkv_b = wkv_b + torch.matmul(la["a"].to(wkv_b.dtype),
+                                     la["b"].to(wkv_b.dtype)) \
+            * lora_scaling(la)
+    w_uk = wkv_b.reshape(*wkv_b.shape[:-2], m.kv_lora_rank, h,
+                         nope + m.v_head_dim)
+    w_uk_k, w_uv = w_uk[..., :nope], w_uk[..., nope:]
+    if wkv_b.dim() == 3:                      # per slot: (B, rank, H, *)
+        q_abs = _einsum("bqhn,brhn->bqhr", q_nope, w_uk_k)
+    else:
+        q_abs = _einsum("bqhn,rhn->bqhr", q_nope, w_uk_k)   # (B,1,H,rank)
+    scale = 1.0 / math.sqrt(nope + m.qk_rope_head_dim)
+    valid = torch.clamp(pos + 1, max=cap).to(torch.int32)
+    q_full = torch.cat([q_abs, q_rope], dim=-1)         # (B,1,H,rank+rope)
+    kv_lat = torch.cat([c, kr], dim=-1)[:, :, None, :]
+    v_lat = c[:, :, None, :]                                 # (B,C,1,rank)
+    fd = dispatch.get_kernel("flash_decode", model_backend(cfg), x.device)
+    ctx = fd(q_full, kv_lat, v_lat, kv_valid_len=valid, scale=scale)
+    if wkv_b.dim() == 3:
+        out = _einsum("bqhr,brhv->bqhv", ctx, w_uv)
+    else:
+        out = _einsum("bqhr,rhv->bqhv", ctx, w_uv)           # (B,1,H,v)
+    y = _matmul(out.reshape(b, s, -1), params["wo"])
+    return y, cache
+
+
+def init_mla_cache(cfg, batch: int, capacity: int, dtype, device,
+                   lead=()) -> dict:
+    m = cfg.mla
+    return {
+        "c": torch.zeros((*lead, batch, capacity, m.kv_lora_rank),
+                         dtype=dtype, device=device),
+        "k_rope": torch.zeros((*lead, batch, capacity, m.qk_rope_head_dim),
+                              dtype=dtype, device=device),
+    }
 
 
 # ---------------------------------------------------------------------------

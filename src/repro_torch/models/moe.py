@@ -20,10 +20,12 @@ Neither depends on the order of concurrent writes, so a run gives the
 same bits every time (the backward of the combine's gather adds only
 exact zeros into rows that another slot owns).
 
-Used by granite-moe and jamba (its ``mamba_moe`` blocks), in training,
-prefill and decoding; at decode ``moe_block`` runs on the (B, d) tokens
-of one step, so the expert FFN sees capacity buffers of 8 rows (the
-floor of ``_capacity``). deepseek-v3's MLA blocks are not ported.
+Used by granite-moe, jamba (its ``mamba_moe`` blocks) and deepseek-v3
+(its ``mla_moe`` blocks: 256 routed experts, top 8, plus the shared
+expert, a SwiGLU MLP of ``d_ff_expert * n_shared_experts`` that every
+token passes through), in training, prefill and decoding; at decode
+``moe_block`` runs on the (B, d) tokens of one step, so the expert FFN
+sees capacity buffers of 8 rows (the floor of ``_capacity``).
 ``moe_block_ep`` (the JAX package's expert-parallel shard_map path)
 needs several devices and is not ported (ROADMAP.md).
 """

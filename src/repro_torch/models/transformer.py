@@ -1,10 +1,12 @@
 """The whole model, for training, prefill and decoding: GQA attention
 blocks with a SwiGLU MLP (``gqa_mlp``: qwen2-7b, llama2-7b-proxy,
 phi4-mini, qwen3, minicpm) or a top-k MoE (``gqa_moe``: granite-moe),
-attention-free Mamba-2 blocks (``mamba_only``: mamba2-2.7b), and the
-hybrid order of jamba-v0.1 (``mamba_mlp``, ``mamba_moe`` and
-``gqa_mlp`` stacks interleaved by ``hybrid_order``). Every one of these
-kinds trains and decodes.
+attention-free Mamba-2 blocks (``mamba_only``: mamba2-2.7b), the hybrid
+order of jamba-v0.1 (``mamba_mlp``, ``mamba_moe`` and ``gqa_mlp`` stacks
+interleaved by ``hybrid_order``), and deepseek-v3's MLA blocks
+(``mla_mlp`` for the dense prefix, then ``mla_moe`` with the shared
+expert; rotary tables over ``qk_rope_head_dim``). Every one of these
+kinds trains, runs DevFT's submodels and decodes.
 
 Parameters keep the JAX package's *stacked* layout: every leaf of a
 layer stack carries a leading ``(L, ...)`` layer axis, so DevFT's
@@ -19,10 +21,8 @@ window and SSM state) through those per-layer views.
 (non-reentrant); the JAX package's named ``jax.checkpoint_policies``
 have no counterpart here and raise.
 
-Other block kinds (MLA, enc-dec) and multimodal frontends raise
-``NotImplementedError``; ROADMAP.md lists them. DevFT on the hybrid
-order (submodels through ``hybrid_order`` at stage capacities) is not
-driven yet.
+The enc-dec kinds and the multimodal frontends (whisper-tiny,
+qwen2-vl) raise ``NotImplementedError``; ROADMAP.md lists them.
 
 Public API:
     init_params(cfg, gen, dtype)                  -> params
@@ -49,7 +49,7 @@ from repro_torch.models import moe as Moe
 
 #: block kinds this package trains and decodes
 PORTED_KINDS = ("gqa_mlp", "gqa_moe", "mamba_only", "mamba_mlp",
-                "mamba_moe")
+                "mamba_moe", "mla_mlp", "mla_moe")
 
 
 def stack_kinds(cfg) -> Dict[str, str]:
@@ -76,7 +76,7 @@ def _check_ported(cfg) -> None:
             f"{cfg.arch_id} ({cfg.family}: blocks {have}, frontend="
             f"{cfg.frontend}, mrope={cfg.mrope}) is not ported yet; the port "
             f"runs {list(PORTED_KINDS)} blocks (ROADMAP.md, 'Modules to "
-            f"port': MLA, enc-dec and frontend items)")
+            f"port': the enc-dec and frontend items)")
 
 
 def stack_sizes(blocks: dict) -> Dict[str, int]:
@@ -133,6 +133,8 @@ def _init_block(gen: torch.Generator, cfg, kind: str, dtype,
         mixer = Mb.init_mamba(gen, cfg, dtype, lead=(n,))
         if kind == "mamba_only":
             return {"ln1": ln1, "mixer": mixer}
+    elif kind.startswith("mla"):
+        mixer = Lyr.init_mla(gen, cfg, dtype, lead=(n,))
     else:
         mixer = Lyr.init_gqa(gen, cfg, dtype, lead=(n,))
     return {
@@ -147,7 +149,8 @@ def _init_block(gen: torch.Generator, cfg, kind: str, dtype,
 
 def _block_lora_targets(cfg, kind: str):
     """Which mixer projections get LoRA (paper: W_q / W_v; Mamba-2: the
-    in and out projections), with their (d_in, d_out)."""
+    in and out projections; MLA: the query and key/value
+    up-projections), with their (d_in, d_out)."""
     assert kind in PORTED_KINDS, kind
     d = cfg.d_model
     if kind.startswith("mamba"):
@@ -155,6 +158,12 @@ def _block_lora_targets(cfg, kind: str):
                             + 2 * cfg.mamba.n_groups * cfg.mamba.d_state
                             + Mb.n_heads(cfg)),
                 "out_proj": (Mb.d_inner(cfg), d)}
+    if kind.startswith("mla"):
+        m = cfg.mla
+        return {"wq_b": (m.q_lora_rank, cfg.n_heads
+                         * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
+                "wkv_b": (m.kv_lora_rank, cfg.n_heads
+                          * (m.qk_nope_head_dim + m.v_head_dim))}
     return {"wq": (d, cfg.n_heads * cfg.hd),
             "wv": (d, cfg.n_kv_heads * cfg.hd)}
 
@@ -225,6 +234,9 @@ def block_forward(p, cfg, kind, x, cos, sin, lora=None, *, window=None,
             torch.zeros((), dtype=torch.float32, device=x.device)
     if kind.startswith("mamba"):
         x = x + Mb.mamba_forward(p["mixer"], cfg, h, lora=lora)
+    elif kind.startswith("mla"):
+        x = x + Lyr.mla_attention(p["mixer"], cfg, h, cos, sin, lora=lora,
+                                  causal=causal, window=window)
     else:
         x = x + Lyr.gqa_attention(p["mixer"], cfg, h, cos, sin, lora=lora,
                                   window=window, causal=causal)
@@ -244,8 +256,16 @@ def _embed_inputs(cfg, params, batch):
         return x, None, None
     pos = torch.arange(s, dtype=torch.int32,
                        device=tokens.device)[None, :].expand(b, s)
-    cos, sin = Lyr.rope_cos_sin(pos, cfg.hd, cfg.rope_theta)
+    cos, sin = Lyr.rope_cos_sin(pos, rope_dim(cfg), cfg.rope_theta)
     return x, cos, sin
+
+
+def rope_dim(cfg) -> int:
+    """The rotary tables' head dim: MLA rotates only its
+    ``qk_rope_head_dim`` part; 0 without attention heads."""
+    if cfg.attn_kind == "mla":
+        return cfg.mla.qk_rope_head_dim
+    return cfg.hd if cfg.n_heads else 0
 
 
 def _on_device(a, device) -> torch.Tensor:
@@ -350,6 +370,10 @@ def block_decode(p, cfg, kind, x, cache, pos, cos, sin, lora=None):
     if kind.startswith("mamba"):
         mix, cache["mixer"] = Mb.mamba_decode(p["mixer"], cfg, h,
                                               cache["mixer"], lora=lora)
+    elif kind.startswith("mla"):
+        mix, cache["mixer"] = Lyr.mla_decode(p["mixer"], cfg, h,
+                                             cache["mixer"], pos, cos, sin,
+                                             lora=lora)
     else:
         mix, cache["mixer"] = Lyr.gqa_decode(p["mixer"], cfg, h,
                                              cache["mixer"], pos, cos, sin,
@@ -366,6 +390,9 @@ def _init_block_cache(cfg, kind, batch, capacity, dtype, device, lead):
     if kind.startswith("mamba"):
         return {"mixer": Mb.init_mamba_cache(cfg, batch, dtype, device,
                                              lead=lead)}
+    if kind.startswith("mla"):
+        return {"mixer": Lyr.init_mla_cache(cfg, batch, capacity, dtype,
+                                            device, lead=lead)}
     return {"mixer": Lyr.init_gqa_cache(cfg, batch, capacity, dtype, device,
                                         lead=lead)}
 
@@ -374,9 +401,10 @@ def init_cache(cfg, batch: int, capacity: int, dtype=None,
                device="cuda") -> dict:
     """Stacked decode cache: per stack its kind's cache with leaves of
     shape (L, B, ...) — attention ``{'mixer': {'k', 'v'}}`` of (L, B, C,
-    Hkv, hd); Mamba ``{'conv', 'ssm'}`` (``mamba_only``) or the same
-    under ``'mixer'``, ``ssm`` in f32 — and per-slot positions
-    ``pos (B,)``."""
+    Hkv, hd); MLA ``{'mixer': {'c', 'k_rope'}}`` of (L, B, C,
+    kv_lora_rank) and (L, B, C, qk_rope_head_dim); Mamba ``{'conv',
+    'ssm'}`` (``mamba_only``) or the same under ``'mixer'``, ``ssm`` in
+    f32 — and per-slot positions ``pos (B,)``."""
     _check_ported(cfg)
     dtype = dtype or getattr(torch, cfg.dtype)
     sizes = dict(cfg.layer_stacks())
@@ -394,8 +422,9 @@ def logits_from_hidden(cfg, params, h):
 
 def decode_step(cfg, params, lora, token, cache):
     """One-token decode. token: (B, 1) int. Runs every layer in
-    ``execution_order``, writing its cache (K/V rows, or the conv window
-    and SSM state) in place through per-layer views, and returns (logits
+    ``execution_order``, writing its cache (K/V rows, MLA's latent and
+    rotary key, or the conv window and SSM state) in place through
+    per-layer views, and returns (logits
     (B, 1, Vp), {"stacks": the same stacks, "pos": pos + 1});
     ``cache["pos"]`` itself is left as it was, so a caller can keep the
     old cursor of an inactive slot. A config without attention heads
@@ -404,8 +433,9 @@ def decode_step(cfg, params, lora, token, cache):
     x = params["embed"][token]
     b = token.shape[0]
     pos = cache["pos"]
-    if cfg.n_heads:
-        cos, sin = Lyr.rope_cos_sin(pos[:, None], cfg.hd, cfg.rope_theta)
+    if rope_dim(cfg):
+        cos, sin = Lyr.rope_cos_sin(pos[:, None], rope_dim(cfg),
+                                    cfg.rope_theta)
     else:
         cos = sin = torch.zeros((b, 1, 1), dtype=torch.float32,
                                 device=x.device)

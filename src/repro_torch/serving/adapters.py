@@ -9,6 +9,10 @@ slot->adapter index vector), so any resident subset of adapters is
 served without weight swapping; shapes depend only on the residency
 capacity ``N``.
 
+On MLA (deepseek-v3) the targets are ``wq_b`` and ``wkv_b``; decoding
+merges each slot's ``wkv_b`` adapter into a per-slot up-projection
+(``layers.mla_decode``), as the JAX package does.
+
 Populations larger than residency are handled by LRU admission and
 eviction: ``add`` overwrites the least-recently-used unpinned row;
 adapters in use by active requests are pinned, so an eviction never

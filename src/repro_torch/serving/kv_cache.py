@@ -1,7 +1,8 @@
 """Ragged KV-cache manager: per-slot write cursors over the model's
 stacked cache tree, with reset-on-recycle. The tree holds each layer's
-K/V rows (attention) or conv window and f32 SSM state (Mamba-2); every
-leaf is ``(L, B, ...)``, so a slot is one lane of each.
+K/V rows (attention), latent ``c`` and shared rotary key ``k_rope``
+(MLA) or conv window and f32 SSM state (Mamba-2); every leaf is ``(L,
+B, ...)``, so a slot is one lane of each.
 
 The decode cache (``transformer.init_cache``) carries a per-slot
 position vector ``pos (B,)``; the decode path writes each slot's new K/V

@@ -171,18 +171,21 @@ def test_port_imports_no_jax_and_no_repro():
 
 
 def test_ported_kinds_reach_mamba2_for_training_only():
-    """mamba2-2.7b, granite-moe-1b-a400m and jamba-v0.1-52b pass the
-    port check (one check for training and decoding); MLA
-    (deepseek-v3), the enc-dec order (whisper-tiny) and the multimodal
+    """mamba2-2.7b, granite-moe-1b-a400m, jamba-v0.1-52b and
+    deepseek-v3-671b pass the port check (one check for training and
+    decoding); the enc-dec order (whisper-tiny) and the multimodal
     frontend (qwen2-vl) still raise, naming ROADMAP.md. (The name is
     the one this test had while only training was ported.)"""
     from repro_torch.models import transformer as T
     cfg = pcfgs.get_config("mamba2-2.7b")
     assert T.stack_kinds(cfg) == {"layers": "mamba_only"}
-    for arch in ("mamba2-2.7b", "granite-moe-1b-a400m", "jamba-v0.1-52b"):
+    for arch in ("mamba2-2.7b", "granite-moe-1b-a400m", "jamba-v0.1-52b",
+                 "deepseek-v3-671b"):
         T._check_ported(pcfgs.get_config(arch))
     assert set(T.stack_kinds(pcfgs.get_config("jamba-v0.1-52b")).values()) \
         == {"mamba_mlp", "mamba_moe", "gqa_mlp"}
-    for arch in ("deepseek-v3-671b", "whisper-tiny", "qwen2-vl-7b"):
+    assert T.stack_kinds(pcfgs.get_config("deepseek-v3-671b")) \
+        == {"dense": "mla_mlp", "moe": "mla_moe"}
+    for arch in ("whisper-tiny", "qwen2-vl-7b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T._check_ported(pcfgs.get_config(arch))

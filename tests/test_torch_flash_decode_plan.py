@@ -37,9 +37,19 @@ DECODING = [a for a in ALL_ARCH_IDS
 
 def test_decoding_configs_are_the_expected_ones():
     assert {"qwen2-7b", "qwen3-32b", "phi4-mini-3.8b", "minicpm-2b",
-            "llama2-7b-proxy", "granite-moe-1b-a400m",
-            "jamba-v0.1-52b"} <= set(DECODING)
+            "llama2-7b-proxy", "granite-moe-1b-a400m", "jamba-v0.1-52b",
+            "deepseek-v3-671b"} <= set(DECODING)
     assert "mamba2-2.7b" not in DECODING      # decodes, with no attention
+
+
+def _decode_shape(cfg):
+    """(H, Hkv, hd, vd) of a config's decode attention: MLA attends over
+    its latent (one kv head, hd = kv rank + rope, vd = kv rank)."""
+    if cfg.attn_kind == "mla":
+        m = cfg.mla
+        return (cfg.n_heads, 1, m.kv_lora_rank + m.qk_rope_head_dim,
+                m.kv_lora_rank)
+    return cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.hd
 
 
 @pytest.mark.parametrize("b,cap", [(8, 1024), (8, 4096), (1, 4096),
@@ -47,11 +57,11 @@ def test_decoding_configs_are_the_expected_ones():
 @pytest.mark.parametrize("dtypes", sorted(DTYPES))
 @pytest.mark.parametrize("arch", DECODING)
 def test_plan_fits_every_decoding_config(arch, dtypes, b, cap):
-    cfg = get_config(arch)
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    h, hkv, hd, vd = _decode_shape(get_config(arch))
     q_dtype, kv_dtype = DTYPES[dtypes]
-    p = plan(b, h, hkv, cap, hd, hd, q_dtype, kv_dtype, N_SM)
-    assert p.variant == ("tma_mma" if dtypes == "bf16" else "fma")
+    p = plan(b, h, hkv, cap, hd, vd, q_dtype, kv_dtype, N_SM)
+    assert p.variant == ("tma_mma" if dtypes == "bf16" and max(hd, vd)
+                         <= 128 else "fma")
     assert 0 < p.smem <= MAX_SMEM
     assert p.chunk % (MMA_TILE if p.variant == "tma_mma" else 128) == 0
     assert (p.nchunk - 1) * p.chunk < cap <= p.nchunk * p.chunk

@@ -214,10 +214,12 @@ def test_init_trees_mirror_jax(arch, test_spec):
 
 
 def test_unported_block_kinds_raise(test_spec):
-    """MLA (deepseek-v3) and the enc-dec order (whisper-tiny) are not
-    ported; the hybrid order is (``tests/test_torch_hybrid.py``)."""
+    """The enc-dec order (whisper-tiny) and the multimodal frontend
+    (qwen2-vl) are not ported; the hybrid order
+    (``tests/test_torch_hybrid.py``) and MLA (deepseek-v3,
+    ``tests/test_torch_mla.py``) are."""
     spec = ReducedSpec(**dataclasses.asdict(test_spec))
-    for arch in ("deepseek-v3-671b", "whisper-tiny"):
+    for arch in ("whisper-tiny", "qwen2-vl-7b"):
         cfg = reduce_config(get_config(arch), spec)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PT.init_params(cfg, torch.Generator().manual_seed(0))
@@ -226,6 +228,11 @@ def test_unported_block_kinds_raise(test_spec):
     jamba = reduce_config(get_config("jamba-v0.1-52b"), spec)
     params = PT.init_params(jamba, torch.Generator().manual_seed(0))
     assert sorted(params["blocks"]) == ["attn_mlp", "mamba_mlp", "mamba_moe"]
+    deepseek = reduce_config(get_config("deepseek-v3-671b"), spec)
+    params = PT.init_params(deepseek, torch.Generator().manual_seed(0))
+    assert sorted(params["blocks"]) == ["dense", "moe"]
+    cache = PT.init_cache(deepseek, 1, 8, device="cpu")
+    assert sorted(cache["stacks"]["moe"]["mixer"]) == ["c", "k_rope"]
 
 
 SETUPS = [
