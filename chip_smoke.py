@@ -6,14 +6,17 @@
 Builds every Hopper kernel from the sources in this checkout, holds
 each against its plain PyTorch version on the card and times both, then
 drives the serving path (qwen2-7b, granite-moe-1b-a400m, mamba2-2.7b,
-jamba-v0.1-52b and deepseek-v3-671b), the training path
-(llama2-7b-proxy, FedAvg rounds), the other federated methods through a
-sweep, the train->serve hand-off (a FedSA round exported, checkpointed
-and served) and DevFT's training entry point (granite-moe-1b-a400m,
-mamba2-2.7b, jamba-v0.1-52b and deepseek-v3-671b, four stages each, then
-each run's global adapter served) through the port's own entry points
-at full width with random weights (jamba's and deepseek's depth cut),
-and checks card-vs-CPU parity at reduced sizes. Phases, in order:
+jamba-v0.1-52b, deepseek-v3-671b, qwen2-vl-7b and whisper-tiny), the
+training path (llama2-7b-proxy, FedAvg rounds; whisper-tiny's
+encoder-decoder order; qwen2-vl-7b with its vision prefix), the other
+federated methods through a sweep, the train->serve hand-off (a FedSA
+round exported, checkpointed and served) and DevFT's training entry
+point (granite-moe-1b-a400m, mamba2-2.7b, jamba-v0.1-52b,
+deepseek-v3-671b and qwen2-vl-7b, four stages each, then each run's
+global adapter served; whisper-tiny's submodels) through the port's own
+entry points at full width with random weights (jamba's and deepseek's
+depth cut), and checks card-vs-CPU parity at reduced sizes. Phases, in
+order:
 
 1. device: card, power limit, versions, kernel build time, ptxas lines
    (registers, spills, performance-loss warnings);
@@ -58,7 +61,13 @@ and checks card-vs-CPU parity at reduced sizes. Phases, in order:
    (the f32-inside version built 16 experts at a time), ``lora_matmul``
    on jamba's in_proj, out_proj and W_v and deepseek's W_q_b and W_kv_b,
    ``flash_attention`` at jamba's B4 S1024 H32/8 D128 and ``ssd_scan``
-   at jamba's B4 S1024 H128 P64 N16;
+   at jamba's B4 S1024 H128 P64 N16; at the frontend orders' shapes:
+   ``flash_attention`` non-causal at whisper's encoder B4 S1500 H6 D64
+   (the first case, with the first design's time), whisper's decoder B4
+   S448 causal, qwen2-vl's B4 S1024 and S1280 H28/4 D128;
+   ``lora_matmul`` at qwen2-vl's W_q K3584 N3584 and W_v N512 (M4096
+   and M5120) and whisper's K384 N384; ``flash_decode`` at whisper's B8
+   C448 H6/6 hd64 and qwen2-vl's DevFT serve B4 C24 H28/4;
    ``flash_attention`` with the variant of every case, ragged S, windows
    inside and across tiles, GQA, strided views of a fused QKV tensor,
    one-hot V (the output is the probability matrix) and a grid smaller
@@ -68,11 +77,13 @@ and checks card-vs-CPU parity at reduced sizes. Phases, in order:
    and times of kernel, plain version and a PyTorch yardstick the port
    never calls, beside the bound;
 3. serving: qwen2-7b unreduced (28 layers, d 3584, 28/4 heads, vocab
-   152064), then granite-moe-1b-a400m, mamba2-2.7b, jamba-v0.1-52b and
-   deepseek-v3-671b at full width (jamba's depth cut to one interleave
-   period, 8 of its 32 layers, stacks 3 / 4 / 1; deepseek's to its 3
-   dense and 2 MoE layers of 61, 53.2 GB; the phase says so), bf16, 4
-   resident
+   152064), then granite-moe-1b-a400m, mamba2-2.7b, jamba-v0.1-52b,
+   deepseek-v3-671b, qwen2-vl-7b (text requests) and whisper-tiny (its
+   decoder at capacity 448, over the zero cross caches the engine
+   keeps, as in the JAX package) at full width (jamba's depth cut to
+   one interleave period, 8 of its 32 layers, stacks 3 / 4 / 1;
+   deepseek's to its 3 dense and 2 MoE layers of 61, 53.2 GB; the phase
+   says so), bf16, 4 resident
    nonzero rank-8 adapters, 8 slots, capacity 1024, 16 requests of 16 to
    512 (qwen2-7b) or 256 prompt and 32 generated tokens; exact launches
    per engine step (``flash_decode`` once per attention layer, every
@@ -84,14 +95,16 @@ and checks card-vs-CPU parity at reduced sizes. Phases, in order:
 4. trace: for each served arch, device busy share over a few profiled
    engine steps, kernels a step, and each hand kernel's share of it;
 5. parity: reduced qwen2-7b, granite-moe-1b-a400m, mamba2-2.7b,
-   jamba-v0.1-52b and deepseek-v3-671b in f32 give the same greedy
-   tokens on the card (kernels) and on the CPU (plain versions), with
-   slot recycling;
+   jamba-v0.1-52b, deepseek-v3-671b, qwen2-vl-7b and whisper-tiny in
+   f32 give the same greedy tokens on the card (kernels) and on the CPU
+   (plain versions), with slot recycling;
 5a. prefill vs decode: f32 at full width, mamba2 4 layers (S 300 across
    two chunks), granite 4 layers and jamba 8 (both at capacity factor
    E/k, so no token drops), deepseek's 3 dense MLA layers (prefill
    expands k and v from the latent, decoding attends over it through
-   ``flash_decode`` at hd 576, vd 512): prefill's last-token logits
+   ``flash_decode`` at hd 576, vd 512), qwen2-vl's 2 layers (text) and
+   whisper's 4 + 4 (decoding over the cross caches filled from
+   ``encoder_kv``): prefill's last-token logits
    through ``ssd_scan``, ``flash_attention``, ``moe_expert_ffn`` and
    ``lora_matmul`` (a shared 2-D LoRA; exact launches, every kernel on
    its f32 variant) against teacher-forced decoding within 1e-3
@@ -106,10 +119,18 @@ and checks card-vs-CPU parity at reduced sizes. Phases, in order:
    kernel unpadded and every ``flash_attention`` call on its wgmma
    kernel; device busy share over one profiled step;
 7. train parity: full-width loss through the kernels vs the plain path
-   on the card; reduced llama2-7b-proxy, qwen2-7b and mamba2-2.7b in
-   f32, loss and
+   on the card; reduced llama2-7b-proxy, qwen2-7b, mamba2-2.7b,
+   qwen2-vl-7b (with its vision prefix) and whisper-tiny (with audio
+   frames) in f32, loss and
    every LoRA gradient on the card (kernels) vs the CPU (plain), and
    3 local steps of ``make_local_train``;
+7a. whisper-tiny at full width (4 + 4 layers, d 384), bf16, rank-32
+   LoRA on the decoder, 4 x (1500 frames + 448 tokens): three
+   ``make_train_step`` steps after a warm-up with exact launches (the
+   encoder's 4 non-causal attentions once, the decoder's layers twice:
+   remat recomputes them), a profiled step, the kernels vs the plain
+   path on the card, and ``build_submodel`` at capacities 1-4 on the
+   card and the CPU (the same groups, the encoder carried whole);
 8. methods: llama2-7b-proxy unreduced, the spec from
    ``repro_torch.launch.train``'s parser (2 of 20 clients x K=2 local
    steps of 4 x 1024 tokens, rank-32 f32 LoRA, bf16 params), through
@@ -165,7 +186,13 @@ and checks card-vs-CPU parity at reduced sizes. Phases, in order:
    (1, 1), (1, 1), (2, 1), (3, 1) (the MoE stack is never cut, so no
    stage copies its 22.5 GB of experts); ``lora_matmul`` 110 on W_q_b
    and W_kv_b, ``moe_expert_ffn`` 20, MLA's attention plain as in JAX.
-   After each of the four DevFT phases, its run's ``global`` adapter
+14. devft on qwen2-vl-7b at full width and depth (28 layers, 15.2 GB;
+   text-only batches, as in the JAX package): capacities 4, 7, 14, 28;
+   ``flash_attention`` 265 and ``lora_matmul`` 530; then one
+   ``make_train_step`` step with the 256-patch vision prefix (S1280) on
+   the run's base params and final LoRA, exact launches, profiled, and
+   its loss and gradients through the kernels vs the plain path.
+   After each of the five DevFT phases, its run's ``global`` adapter
    (``registry_from_run(..., personalize=False)``, bit-equal to the
    final LoRA) is served on the run's base params, 4 requests of 16 + 8
    tokens, with the serve phase's launch checks.
@@ -279,6 +306,11 @@ DECODE_JAMBA_DEVFT = "jamba devft-serve B4 C24 H32/8 hd128 bf16"
 #: served at 8 slots of 1024 and its DevFT run at 4 slots of 24
 DECODE_MLA = "deepseek B8 C1024 H128/1 hd576 vd512 bf16"
 DECODE_MLA_DEVFT = "deepseek devft-serve B4 C24 H128/1 hd576 vd512 bf16"
+#: whisper-tiny's decoder self-attention served at 8 slots of its
+#: published context (448), and qwen2-vl-7b's DevFT run served (4 slots of
+#: 24; its engine serving is qwen2-7b's shape, ``DECODE_SERVE``)
+DECODE_WHISPER = "whisper B8 C448 H6/6 hd64 bf16"
+DECODE_VL_DEVFT = "qwen2-vl devft-serve B4 C24 H28/4 hd128 bf16"
 #: every flash_decode shape a serving phase launches, bf16: (slots, heads,
 #: kv heads, head dim, v head dim, capacity) -> the kernel phase's case
 #: that holds it
@@ -290,6 +322,8 @@ SERVED_DECODE = {
     (4, 32, 8, 128, 128, 24): DECODE_JAMBA_DEVFT,
     (8, 128, 1, 576, 512, 1024): DECODE_MLA,
     (4, 128, 1, 576, 512, 24): DECODE_MLA_DEVFT,
+    (8, 6, 6, 64, 64, 448): DECODE_WHISPER,
+    (4, 28, 4, 128, 128, 24): DECODE_VL_DEVFT,
 }
 
 
@@ -419,7 +453,8 @@ def kernel_phase(flash_decode_bhrd, flash_decode_ref, seed: int = 0):
                   f"{name}: NaN rows past valid changed the output")
             extra = " | NaN rows past valid: output bit-equal to zeros there"
         if name in (DECODE_GRANITE, DECODE_JAMBA, DECODE_DEVFT,
-                    DECODE_JAMBA_DEVFT, DECODE_MLA, DECODE_MLA_DEVFT):
+                    DECODE_JAMBA_DEVFT, DECODE_MLA, DECODE_MLA_DEVFT,
+                    DECODE_WHISPER, DECODE_VL_DEVFT):
             again = flash_decode_bhrd(q, k, v, kv_valid_len=valid)
             torch.cuda.synchronize()
             check(torch.equal(again, out), f"{name}: two calls differ")
@@ -605,6 +640,20 @@ def lora_phase(lora_matmul_fused, lora_matmul_ref, seed: int = 0):
          32, bf16),
         ("deepseek wkv_b M4096 K512 N32768 r32 bf16", (4, 1024, 512), 32768,
          32, bf16),
+        # qwen2-vl-7b's W_q and W_v (its bias added after the kernel) on
+        # the DevFT path (4 x 1024 text tokens) and with the 256-patch
+        # vision prefix (4 x 1280)
+        ("qwen2-vl wq M4096 K3584 N3584 r32 bf16", (4, 1024, 3584), 3584,
+         32, bf16),
+        ("qwen2-vl wv M4096 K3584 N512 r32 bf16", (4, 1024, 3584), 512, 32,
+         bf16),
+        ("qwen2-vl prefix wq M5120 K3584 N3584 r32 bf16", (4, 1280, 3584),
+         3584, 32, bf16),
+        ("qwen2-vl prefix wv M5120 K3584 N512 r32 bf16", (4, 1280, 3584),
+         512, 32, bf16),
+        # whisper-tiny's decoder W_q and W_v (MHA: one shape), 4 x 448
+        ("whisper wq/wv M1792 K384 N384 r32 bf16", (4, 448, 384), 384, 32,
+         bf16),
     ]
     rows = {}
     for name, xs, n, r, dt in cases:
@@ -632,7 +681,7 @@ def lora_phase(lora_matmul_fused, lora_matmul_ref, seed: int = 0):
         check(p.variant == ("wgmma" if dt == bf16 else "fma_f32"),
               f"lora {name}: variant {p.variant}")
         on_path = name == LORA_PATH or name.startswith(
-            ("granite", "mamba", "jamba", "deepseek"))
+            ("granite", "mamba", "jamba", "deepseek", "qwen2-vl", "whisper"))
         check(not (on_path and p.padded),
               f"lora {name}: a training path's shape padded ({p})")
         if name == LORA_PATH:
@@ -741,6 +790,13 @@ FLASH_PATH = "path B4 S1024 H32 D128 causal bf16"
 FLASH_GRANITE = "granite B4 S1024 H16/8 D64 causal bf16"
 #: jamba-v0.1-52b's attention layer on its DevFT path
 FLASH_JAMBA = "jamba B4 S1024 H32/8 D128 causal bf16"
+#: whisper-tiny's encoder (non-causal over 1500 frames: 11 tiles of 128
+#: and a ragged 92) and decoder self-attention (its 448-token context),
+#: and qwen2-vl-7b's layer on the DevFT path and with the 256-patch prefix
+FLASH_WHISPER_ENC = "whisper enc B4 S1500 H6 D64 full bf16"
+FLASH_WHISPER_DEC = "whisper dec B4 S448 H6 D64 causal bf16"
+FLASH_VL = "qwen2-vl B4 S1024 H28/4 D128 causal bf16"
+FLASH_VL_PREFIX = "qwen2-vl B4 S1280 H28/4 D128 causal bf16"
 
 
 def _denominators(q, k, v, scale):
@@ -791,6 +847,8 @@ def attention_phase(flash_attention_bshd, attention_bshd_ref,
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [  # name, B, S, H, Hkv, D, causal, window, dtype, inputs
+        # the non-causal branch first: no other path runs it
+        (FLASH_WHISPER_ENC, 4, 1500, 6, 6, 64, False, None, bf16, "randn"),
         (FLASH_PATH, 4, 1024, 32, 32, 128, True, None, bf16, "randn"),
         ("path B4 S1024 H32 D128 causal f32", 4, 1024, 32, 32, 128, True,
          None, f32, "randn"),
@@ -809,6 +867,11 @@ def attention_phase(flash_attention_bshd, attention_bshd_ref,
          "randn"),
         (FLASH_GRANITE, 4, 1024, 16, 8, 64, True, None, bf16, "randn"),
         (FLASH_JAMBA, 4, 1024, 32, 8, 128, True, None, bf16, "randn"),
+        (FLASH_WHISPER_DEC, 4, 448, 6, 6, 64, True, None, bf16, "randn"),
+        (FLASH_VL, 4, 1024, 28, 4, 128, True, None, bf16, "randn"),
+        (FLASH_VL_PREFIX, 4, 1280, 28, 4, 128, True, None, bf16, "randn"),
+        ("ragged S1500 full f32", 2, 1500, 4, 4, 64, False, None, f32,
+         "randn"),
         ("ragged S1000 window 300 D64 bf16", 2, 1000, 4, 2, 64, True, 300,
          bf16, "randn"),
         # q, k, v as strided views of one (B, S, 3H, D) tensor
@@ -888,7 +951,8 @@ def attention_phase(flash_attention_bshd, attention_bshd_ref,
                           bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=library_ms, variant=p.variant)
         extra = ""
-        if name in (FLASH_PATH, FLASH_GRANITE, FLASH_JAMBA):
+        if name in (FLASH_PATH, FLASH_GRANITE, FLASH_JAMBA,
+                    FLASH_WHISPER_ENC):
             # the first design on the same inputs
             scale = d ** -0.5
             old = plan(b, s, h, hkv, d, dt, causal, window,
@@ -972,6 +1036,18 @@ ARCH_CONFIGS = {
                    c.moe.first_dense_layers, c.d_ff, c.vocab, c.dtype),
         (61, 7168, 128, "mla", 1536, 512, 64, 128, 128, 256, 8, 2048, 1, 3,
          18432, 129280, "bfloat16")),
+    "qwen2-vl-7b": (
+        lambda c: (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads, c.hd,
+                   c.d_ff, c.vocab, c.qkv_bias, c.mrope, c.mrope_sections,
+                   c.frontend, c.n_frontend_tokens, c.rope_theta, c.dtype),
+        (28, 3584, 28, 4, 128, 18944, 152064, True, True, (16, 24, 24),
+         "vision", 256, 1e6, "bfloat16")),
+    "whisper-tiny": (
+        lambda c: (c.n_layers, c.n_enc_layers, c.is_encdec, c.d_model,
+                   c.n_heads, c.n_kv_heads, c.hd, c.d_ff, c.vocab,
+                   c.frontend, c.n_frontend_tokens, c.dtype),
+        (4, 4, True, 384, 6, 6, 64, 1536, 51865, "audio", 1500,
+         "bfloat16")),
 }
 
 
@@ -983,20 +1059,26 @@ def _check_config(arch, cfg):
 
 #: the serving phases, in order: arch -> (each kernel's launches per
 #: engine step, the depth served (None: the config's), the longest
-#: prompt)
+#: prompt, the KV capacity of a slot)
 SERVE_ARCHS = {
-    "qwen2-7b": ({"flash_decode_bhrd": 28}, None, 512),
+    "qwen2-7b": ({"flash_decode_bhrd": 28}, None, 512, 1024),
     "granite-moe-1b-a400m": (
-        {"flash_decode_bhrd": 24, "moe_expert_ffn_ecd": 24}, None, 256),
-    "mamba2-2.7b": ({}, None, 256),
+        {"flash_decode_bhrd": 24, "moe_expert_ffn_ecd": 24}, None, 256, 1024),
+    "mamba2-2.7b": ({}, None, 256, 1024),
     # 8 of 32 layers (one interleave period: stacks 3 / 4 / 1); the full
     # depth is ~104 GB in bf16
     "jamba-v0.1-52b": (
-        {"flash_decode_bhrd": 1, "moe_expert_ffn_ecd": 4}, 8, 256),
+        {"flash_decode_bhrd": 1, "moe_expert_ffn_ecd": 4}, 8, 256, 1024),
     # 5 of 61 layers (the 3 dense and 2 MoE: 53.3 GB in bf16, of which
     # 45.1 GB the two layers' experts); the full depth is ~1.3 TB
     "deepseek-v3-671b": (
-        {"flash_decode_bhrd": 5, "moe_expert_ffn_ecd": 2}, 5, 256),
+        {"flash_decode_bhrd": 5, "moe_expert_ffn_ecd": 2}, 5, 256, 1024),
+    # text requests, M-RoPE tables at each slot's position
+    "qwen2-vl-7b": ({"flash_decode_bhrd": 28}, None, 512, 1024),
+    # the decoder at its published context (448); the engine runs no
+    # encoder, so the cross-attention reads zero caches, as in the JAX
+    # package
+    "whisper-tiny": ({"flash_decode_bhrd": 4}, None, 256, 448),
 }
 
 
@@ -1031,7 +1113,7 @@ def _check_serve_launches(tag, per_step, steps, dtype=torch.bfloat16,
 def serve_arch_phase(arch, seed: int = 0):
     """``arch`` (a key of ``SERVE_ARCHS``) at full width, bf16, through the
     multi-tenant engine: 4 resident nonzero rank-8 adapters, 8 slots,
-    KV capacity 1024, 16 requests of 16 to the table's longest prompt
+    the table's KV capacity, 16 requests of 16 to its longest prompt
     and 32 generated tokens; exact launches, decode latency, TTFT,
     tok/s and peak memory, finite logits, then a few profiled engine
     steps. Returns the (``flash_decode``, ``moe_expert_ffn``) launches."""
@@ -1042,13 +1124,13 @@ def serve_arch_phase(arch, seed: int = 0):
     from repro_torch.serving import AdapterRegistry, ServingEngine
 
     tag = f"serve {arch}"
-    per_step, depth, longest = SERVE_ARCHS[arch]
+    per_step, depth, longest, capacity = SERVE_ARCHS[arch]
     cfg = get_config(arch)
     _check_config(arch, cfg)
     full_depth = cfg.n_layers
     if depth:
         cfg = dataclasses.replace(cfg, n_layers=depth)
-    n_slots, capacity, n_req, gen_len, n_adapters = 8, 1024, 16, 32, 4
+    n_slots, n_req, gen_len, n_adapters = 8, 16, 32, 4
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1193,14 +1275,16 @@ def _profile(tag, what, fn, n=1):
 
 #: the reduced archs whose greedy tokens the card and the CPU must agree on
 PARITY_ARCHS = ("qwen2-7b", "granite-moe-1b-a400m", "mamba2-2.7b",
-                "jamba-v0.1-52b", "deepseek-v3-671b")
+                "jamba-v0.1-52b", "deepseek-v3-671b", "qwen2-vl-7b",
+                "whisper-tiny")
 
 
 def parity_phase(seed: int = 0):
     """Reduced qwen2-7b, granite-moe-1b-a400m, mamba2-2.7b,
-    jamba-v0.1-52b and deepseek-v3-671b in f32: the card (kernels) and
-    the CPU (plain versions) give the same greedy tokens through the
-    multi-tenant engine, with slot recycling."""
+    jamba-v0.1-52b, deepseek-v3-671b, qwen2-vl-7b and whisper-tiny in
+    f32: the card (kernels) and the CPU (plain versions) give the same
+    greedy tokens through the multi-tenant engine, with slot
+    recycling."""
     import dataclasses
 
     from repro_torch.configs import get_config, reduce_config
@@ -1259,12 +1343,18 @@ PVD_VARIANTS = {"flash_decode_bhrd": "fma", "lora_matmul_fused": "fma_f32",
 #: arch -> (layers, batch, prefill length); full width, f32.
 #: deepseek-v3-671b's 3 layers are its dense MLA prefix (an empty MoE
 #: stack): prefill expands k and v from the latent, decoding attends over
-#: it in the absorbed formulation (``flash_decode`` at hd 576, vd 512)
+#: it in the absorbed formulation (``flash_decode`` at hd 576, vd 512).
+#: qwen2-vl-7b runs text (M-RoPE with equal streams in both paths);
+#: whisper-tiny's 4 are its decoder layers, after its 4 encoder layers
+#: over 1500 frames: prefill runs the encoder inside the forward,
+#: decoding reads the cross caches filled from ``encoder_kv``
 PVD_CASES = {
     "mamba2-2.7b": (4, 2, 300),
     "granite-moe-1b-a400m": (4, 2, 64),
     "jamba-v0.1-52b": (8, 2, 48),
     "deepseek-v3-671b": (3, 2, 48),
+    "qwen2-vl-7b": (2, 2, 48),
+    "whisper-tiny": (4, 2, 48),
 }
 
 
@@ -1299,21 +1389,28 @@ def prefill_vs_decode_phase(seed: int = 0):
         for name, _ in T.execution_order(cfg):
             n_of[kinds[name]] += 1
         n_mamba = sum(v for k, v in n_of.items() if k.startswith("mamba"))
-        n_attn = sum(v for k, v in n_of.items() if k.startswith("gqa"))
+        n_attn = sum(v for k, v in n_of.items()
+                     if k.startswith("gqa") or k == "dec")
         n_mla = sum(v for k, v in n_of.items() if k.startswith("mla"))
         n_moe = sum(v for k, v in n_of.items() if k.endswith("moe"))
+        n_enc = n_of["enc"]                  # frozen: no adapter, no cache
         rng = np.random.default_rng(np.random.SeedSequence((seed, 23)))
         tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).cuda()
+        batch = {"tokens": tokens}
+        if cfg.is_encdec:
+            batch["audio_embeds"] = torch.from_numpy(rng.standard_normal(
+                (b, cfg.n_frontend_tokens, cfg.d_model),
+                dtype=np.float32)).cuda()
         _reset_all_counts()
         t0 = time.perf_counter()
         with torch.no_grad():
-            want = T.prefill(cfg, params, lora, {"tokens": tokens})
+            want = T.prefill(cfg, params, lora, batch)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         pre = {fn.__name__: fn.launches for fn in _path_kernels()}
         check(pre == {"flash_decode_bhrd": 0,
                       "lora_matmul_fused": 2 * (n_mamba + n_attn + n_mla),
-                      "flash_attention_bshd": n_attn,
+                      "flash_attention_bshd": n_attn + n_enc,
                       "moe_expert_ffn_ecd": n_moe,
                       "ssd_scan_bshp": n_mamba},
               f"{tag}: prefill launches {pre}")
@@ -1321,8 +1418,13 @@ def prefill_vs_decode_phase(seed: int = 0):
         check(variants == {k: {PVD_VARIANTS[k]: n} if n else {}
                            for k, n in pre.items()},
               f"{tag}: prefill variants {variants}")
-        _reset_all_counts()
         cache = T.init_cache(cfg, b, s, device="cuda")
+        if cfg.is_encdec:
+            dec = cache["stacks"]["dec"]
+            with torch.no_grad():
+                dec["cross_k"][:], dec["cross_v"][:] = T.encoder_kv(
+                    cfg, params, batch["audio_embeds"])
+        _reset_all_counts()
         t0 = time.perf_counter()
         with torch.no_grad():
             for i in range(s):
@@ -1339,8 +1441,8 @@ def prefill_vs_decode_phase(seed: int = 0):
               and row <= PVD_TOL,
               f"{tag}: row-scaled error {row} > {PVD_TOL} (abs {err})")
         print(f"[pvd] {arch} f32 full width, {layers} layers ({n_mamba} "
-              f"Mamba, {n_attn} attention, {n_mla} MLA, {n_moe} MoE), B{b} "
-              f"S{s}: prefill "
+              f"Mamba, {n_attn} attention, {n_mla} MLA, {n_moe} MoE; "
+              f"{n_enc} encoder layers before them), B{b} S{s}: prefill "
               f"{prefill_s * 1e3:.1f} ms through the kernels {pre}, all on "
               f"their f32 variants; "
               f"teacher-forced decode {s} steps {decode_s:.2f} s; last-token "
@@ -1486,7 +1588,8 @@ def train_parity_phase(cfg, params, lora, batches, seed: int = 0):
     def to(tree, dev):
         return tree_map(lambda t: t.to(dev), tree)
 
-    for arch in ("llama2-7b-proxy", "qwen2-7b", "mamba2-2.7b"):
+    for arch in ("llama2-7b-proxy", "qwen2-7b", "mamba2-2.7b",
+                 "qwen2-vl-7b", "whisper-tiny"):
         rcfg = dataclasses.replace(reduce_config(get_config(arch)),
                                    dtype="float32")
         gen = torch.Generator(device="cpu").manual_seed(seed)
@@ -1495,6 +1598,9 @@ def train_parity_phase(cfg, params, lora, batches, seed: int = 0):
         tok = rng.integers(0, rcfg.vocab, size=(2, 100), dtype=np.int32)
         lab = rng.integers(0, rcfg.vocab, size=(2, 100), dtype=np.int32)
         b1 = {"tokens": tok, "labels": lab}
+        if rcfg.frontend:          # the vision prefix or the audio frames
+            b1[f"{rcfg.frontend}_embeds"] = rng.standard_normal(
+                (2, rcfg.n_frontend_tokens, rcfg.d_model), dtype=np.float32)
         # f32: summation order only, rtol = atol = 1e-4
         got = T.loss_and_lora_grads(rcfg, to(rp, "cuda"), to(rl, "cuda"), b1)
         want = T.loss_and_lora_grads(rcfg, rp, rl, b1)
@@ -2221,6 +2327,210 @@ def devft_phase(arch, want_caps, per_kind, want_forward_layers,
     return launches, result, base["params"], cfg
 
 
+def _train_step_launches(cfg, n_enc=0):
+    """One ``make_train_step`` step's launches (remat on, the step's
+    default): the forward runs each layer once and the backward's
+    recompute runs every layer that carries an adapter once more; the
+    frozen encoder, which nothing needs a gradient of, is neither saved
+    nor recomputed. ``lora_matmul`` on W_q and W_v, ``flash_attention``
+    once a layer."""
+    n = cfg.n_layers
+    return {"flash_decode_bhrd": 0, "lora_matmul_fused": 2 * 2 * n,
+            "flash_attention_bshd": 2 * n + n_enc, "moe_expert_ffn_ecd": 0,
+            "ssd_scan_bshp": 0}
+
+
+def _kernels_vs_plain(tag, cfg, params, lora, batch):
+    """Loss and every LoRA gradient through the kernels against the plain
+    path (the ``reference`` backend) on the card, bf16, both with remat
+    (the plain path's f32 attention probabilities at full depth would not
+    fit otherwise). The loss is held within 1e-2 relative (the train
+    parity phase's limit). The gradients are reported, not held: both
+    paths run the same plain backward, so they differ only through the
+    forward's bf16 roundings, which grow with depth (a leaf's difference
+    reached 5.5% of its norm over qwen2-vl's 28 layers, 2.7% over
+    whisper's 4 + 4, on the H100)."""
+    import dataclasses
+
+    from repro_torch.models import transformer as T
+
+    kern = T.loss_and_lora_grads(cfg, params, lora, batch, remat=True)
+    plain = T.loss_and_lora_grads(
+        dataclasses.replace(cfg, kernel_backend="reference"), params, lora,
+        batch, remat=True)
+    rel = abs(float(kern[0]) - float(plain[0])) / abs(float(plain[0]))
+    check(rel <= 1e-2, f"{tag}: loss through the kernels {float(kern[0])} "
+          f"vs plain {float(plain[0])} (rel {rel})")
+    diffs = [float((a - b).norm() / b.norm())
+             for a, b in zip(_leaves(kern[2]), _leaves(plain[2]))]
+    check(all(np.isfinite(diffs)), f"{tag}: gradients not finite")
+    print(f"[{tag}] kernels vs the plain path on the card: loss "
+          f"{float(kern[0]):.5f} vs {float(plain[0]):.5f} (rel {rel:.3g}, tol "
+          f"1e-2); LoRA gradients differ by {np.median(diffs):.3g} of their "
+          f"norms at the median, {max(diffs):.3g} at most, over "
+          f"{len(diffs)} leaves (reported)")
+    del kern, plain
+
+
+def vision_prefix_phase(params, cfg, lora, seed: int = 0):
+    """qwen2-vl-7b at full width and depth with its vision prefix (the
+    DevFT run's base params and final LoRA): 4 x (256 patches + 1024 text
+    tokens), so every layer's attention runs at S1280. One
+    ``make_train_step`` step through the kernels with exact launches
+    (``_train_step_launches``; all on wgmma, unpadded), then a profiled
+    one; the loss and LoRA gradients through the kernels against the
+    plain path on the card. Returns the step's launches."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import init_adamw
+
+    tag = "vision prefix qwen2-vl-7b"
+    b, s, n_vis = 4, 1024, cfg.n_frontend_tokens
+    rng = np.random.default_rng(np.random.SeedSequence((seed, 25)))
+    batch = {key: torch.from_numpy(rng.integers(
+        0, cfg.vocab, (b, s), dtype=np.int32)).cuda()
+        for key in ("tokens", "labels")}
+    batch["vision_embeds"] = torch.from_numpy(rng.standard_normal(
+        (b, n_vis, cfg.d_model), dtype=np.float32)).cuda()
+    step = make_train_step(cfg)
+    opt = init_adamw(lora)
+    kernels = _path_kernels()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    new_lora, _, metrics = step(params, lora, opt, batch, 1e-4)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    want = _train_step_launches(cfg)
+    check(launches == want, f"{tag}: launches {launches}, want {want}")
+    _check_lora_variants(kernels[1], tag)
+    _check_flash_variant(kernels[2], tag)
+    check(np.isfinite(loss) and all(bool(torch.isfinite(t).all())
+                                    for t in _leaves(new_lora)),
+          f"{tag}: loss {loss} or the new LoRA not finite")
+    print(f"[{tag}] full width, {cfg.n_layers} layers, B{b} x ({n_vis} "
+          f"patches + {s} tokens): one train step {wall * 1e3:.1f} ms "
+          f"(first at this shape), loss {loss:.4f}, launches {launches}, "
+          f"max memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del new_lora
+    _profile(tag, "one profiled train step (forward, remat, backward, "
+             "AdamW)", lambda: step(params, lora, opt, batch, 1e-4))
+    _reset_all_counts()
+    _kernels_vs_plain(tag, cfg, params, lora, batch)
+    _reset_all_counts()
+    return launches
+
+
+WHISPER_STEPS = 3           # timed make_train_step steps after a warm-up
+
+
+def whisper_phase(seed: int = 0):
+    """whisper-tiny at full width (4 encoder and 4 decoder layers, d 384,
+    6 heads of 64, vocab 51865), bf16 params, a rank-32 f32 LoRA on the
+    decoder, 4 x (1500 audio frames + 448 tokens, the published decoder
+    context): ``WHISPER_STEPS`` ``make_train_step`` steps after a warm-up,
+    each with exact launches (``_train_step_launches``: the encoder's 4
+    non-causal attentions once, the decoder twice), all on wgmma; one
+    profiled step; the loss and LoRA gradients through the kernels
+    against the plain path on the card; then DevFT's ``build_submodel``
+    at capacities 1-4 on the card and on the CPU: the same groups (or,
+    where they differ, the CPU's clustering of the card's own similarity
+    matrix gives the card's), the encoder carried whole, the submodel's
+    loss finite. Its serving is ``SERVE_ARCHS``'s. Returns a step's
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import similarity_matrix
+    from repro_torch.core.devft import build_submodel
+    from repro_torch.core.grouping import layer_vectors, spectral_grouping
+    from repro_torch.interop import tree_map
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import init_adamw
+
+    tag = "whisper-tiny"
+    cfg = get_config(tag)
+    _check_config(tag, cfg)
+    b, s, rank, lr = 4, 448, 32, 1e-4
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_params(cfg, g)
+    lora = _nonzero_lora(T, cfg, g, rank, 0.02)
+    rng = np.random.default_rng(np.random.SeedSequence((seed, 26)))
+    batch = {key: torch.from_numpy(rng.integers(
+        0, cfg.vocab, (b, s), dtype=np.int32)).cuda()
+        for key in ("tokens", "labels")}
+    batch["audio_embeds"] = torch.from_numpy(rng.standard_normal(
+        (b, cfg.n_frontend_tokens, cfg.d_model), dtype=np.float32)).cuda()
+    print(f"[{tag}] full width: "
+          f"{sum(p.numel() for p in _leaves(params)) / 1e6:.2f} M params "
+          f"({cfg.dtype}), stacks {T.stack_sizes(params['blocks'])}, "
+          f"rank-{rank} f32 LoRA on {sorted(lora)}; B{b} x "
+          f"({cfg.n_frontend_tokens} frames + {s} tokens)")
+
+    step = make_train_step(cfg)
+    kernels = _path_kernels()
+    opt = init_adamw(lora)
+    lora, opt, _ = step(params, lora, opt, batch, lr)         # warm-up
+    want = _train_step_launches(cfg, n_enc=cfg.n_enc_layers)
+    walls = []
+    for _ in range(WHISPER_STEPS):
+        _reset_all_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lora, opt, metrics = step(params, lora, opt, batch, lr)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        check(launches == want, f"{tag}: launches {launches}, want {want}")
+        _check_lora_variants(kernels[1], tag)
+        _check_flash_variant(kernels[2], tag)
+        check(np.isfinite(loss), f"{tag}: loss {loss}")
+    print(f"[{tag}] make_train_step x {WHISPER_STEPS} (after a warm-up): "
+          f"{', '.join(f'{1e3 * w:.1f}' for w in walls)} ms, median "
+          f"{1e3 * float(np.median(walls)):.1f} ms a step, "
+          f"{b * (s + cfg.n_frontend_tokens) / float(np.median(walls)):.0f}"
+          f" frames + tokens/s; last loss {loss:.4f}; launches a step "
+          f"{launches}")
+    _profile(tag, "one profiled train step (forward, remat, backward, "
+             "AdamW)", lambda: step(params, lora, opt, batch, lr))
+    _reset_all_counts()
+    _kernels_vs_plain(tag, cfg, params, lora, batch)
+    _reset_all_counts()
+
+    cpu = [tree_map(lambda t: t.cpu(), tree) for tree in (params, lora)]
+    for cap in (1, 2, 3, 4):
+        seed_ = (seed, cap)
+        sub = build_submodel(cfg, params, lora, cap, seed=seed_)
+        sub_cpu = build_submodel(cfg, *cpu, cap, seed=seed_)
+        groups, groups_cpu = sub.plan["dec"]["groups"], \
+            sub_cpu.plan["dec"]["groups"]
+        check(sub.params["blocks"]["enc"] is params["blocks"]["enc"]
+              and "enc" not in sub.plan and sub.cfg.n_layers == cap,
+              f"{tag}: capacity {cap}: the encoder not carried whole")
+        note = "equal"
+        if groups != groups_cpu:
+            vec = layer_vectors(params["blocks"]["dec"], lora["dec"])
+            again = spectral_grouping(similarity_matrix(vec).cpu(), cap,
+                                      seed=seed_)
+            check(again == groups, f"{tag}: capacity {cap}: groups card "
+                  f"{groups}, CPU {groups_cpu}, CPU on the card's W {again}")
+            note = (f"{groups_cpu} (the CPU's clustering of the card's own "
+                    f"W gives the card's)")
+        with torch.no_grad():
+            sub_loss, _ = T.loss_fn(sub.cfg, sub.params, sub.lora, batch)
+        check(bool(torch.isfinite(sub_loss)), f"{tag}: capacity {cap}: "
+              f"submodel loss {float(sub_loss)}")
+        print(f"[{tag}] build_submodel capacity {cap}: decoder groups (card) "
+              f"{groups}; CPU {note}; encoder carried whole (the same "
+              f"tensors); submodel loss {float(sub_loss):.4f}")
+        del sub, sub_cpu
+    _reset_all_counts()
+    return launches
+
+
 def devft_serve_phase(arch, result, params, cfg, per_step):
     """The train->serve hand-off on a DevFT run at full width: its final
     ``global`` adapter (``registry_from_run(..., personalize=False)``)
@@ -2724,6 +3034,11 @@ DEVFT_RUNS = [
      {"mla_mlp": {"lora_matmul_fused": 2},
       "mla_moe": {"lora_matmul_fused": 2, "moe_expert_ffn_ecd": 1}}, 55, 4,
      {"flash_decode_bhrd": 4, "moe_expert_ffn_ecd": 1}),
+    # full depth, text-only batches as in the JAX package (15.2 GB in
+    # bf16): capacities from capacity_schedule(28, 4); then the vision
+    # prefix phase on the run's base params and final LoRA
+    ("qwen2-vl-7b", [4, 7, 14, 28], {"gqa_mlp": _ATTN}, 265, None,
+     SERVE_ARCHS["qwen2-vl-7b"][0]),
 ]
 
 
@@ -2769,6 +3084,8 @@ def main() -> int:
     train_parity_phase(*train[:-1])
     del train
     torch.cuda.empty_cache()
+    path_steps = {"whisper-tiny train step": whisper_phase()}
+    torch.cuda.empty_cache()
     methods_phase()
     torch.cuda.empty_cache()
     handoff_phase()
@@ -2778,6 +3095,9 @@ def main() -> int:
         devft_launches[arch], result, base, cfg = devft_phase(
             arch, caps, per_kind, forward_layers, depth)
         devft_serve_phase(arch, result, base, cfg, per_step)
+        if cfg.frontend == "vision":
+            path_steps[f"{arch} vision-prefix train step"] = \
+                vision_prefix_phase(base, cfg, result.final_lora)
         del result, base
         torch.cuda.empty_cache()
 
@@ -2788,7 +3108,8 @@ def main() -> int:
         return {n: {k: rows_[n][k] for k in keys} for n in names}
 
     def path_launches(name):
-        return {f"devft {arch}": n[name] for arch, n in devft_launches.items()
+        runs = {f"devft {arch}": n for arch, n in devft_launches.items()}
+        return {tag: n[name] for tag, n in {**runs, **path_steps}.items()
                 if n[name]}
 
     kernels = {"kernels": [
@@ -2799,7 +3120,8 @@ def main() -> int:
              serve_launches={a: n[0] for a, n in serve_launches.items()
                              if n[0]},
              cases=cases(rows, (DECODE_MLA, DECODE_MLA_DEVFT,
-                                DECODE_JAMBA_DEVFT))),
+                                DECODE_JAMBA_DEVFT, DECODE_WHISPER,
+                                DECODE_VL_DEVFT))),
         dict(name="lora_matmul", route="cuda",
              source="src/repro_torch/kernels/csrc/lora_matmul.cu",
              replaces="src/repro/kernels/lora_matmul.py:94",
@@ -2807,14 +3129,16 @@ def main() -> int:
              build_s=build_s["lora_matmul"], **lora_rows[LORA_PATH],
              path_launches=path_launches("lora_matmul_fused"),
              cases=cases(lora_rows, [n for n in lora_rows if n.startswith(
-                 ("jamba", "deepseek"))])),
+                 ("jamba", "deepseek", "qwen2-vl", "whisper"))])),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:126",
              launches=train_launches["flash_attention_bshd"],
              **flash_rows[FLASH_PATH],
              path_launches=path_launches("flash_attention_bshd"),
-             cases=cases(flash_rows, (FLASH_JAMBA,))),
+             cases=cases(flash_rows, (FLASH_JAMBA, FLASH_WHISPER_ENC,
+                                      FLASH_WHISPER_DEC, FLASH_VL,
+                                      FLASH_VL_PREFIX))),
         dict(name="moe_expert_ffn", route="cuda",
              source="src/repro_torch/kernels/csrc/moe_ffn.cu",
              replaces="src/repro/kernels/moe_ffn.py:92",

@@ -11,11 +11,15 @@ where the kernels are built, is excluded; prefill is counted apart).
 checked against; it is kept as the reference oracle and for single-
 batch use.
 
-Every arch whose blocks decode in the port serves, reduced as the JAX
-package's CLI does: the dense ones, granite-moe-1b-a400m (MoE),
-mamba2-2.7b (Mamba-2), jamba-v0.1-52b (the hybrid order) and
-deepseek-v3-671b (MLA, decoded in the absorbed formulation through
-``flash_decode``, and the MoE with its shared expert).
+Every arch of the repo serves, reduced as the JAX package's CLI does:
+the dense ones, granite-moe-1b-a400m (MoE), mamba2-2.7b (Mamba-2),
+jamba-v0.1-52b (the hybrid order), deepseek-v3-671b (MLA, decoded in
+the absorbed formulation through ``flash_decode``, and the MoE with its
+shared expert), qwen2-vl-7b (M-RoPE tables at each slot's position in
+all three streams; requests are text, as in the JAX package) and
+whisper-tiny (the decoder; its cross-attention reads the zero cross
+caches ``init_cache`` makes, since, as in the JAX package, the engine
+runs no encoder).
 
 Examples (``--device cpu`` runs the plain PyTorch versions):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
@@ -26,6 +30,10 @@ Examples (``--device cpu`` runs the plain PyTorch versions):
         --arch jamba-v0.1-52b --batch 2 --prompt-len 8 --gen 8 --n-adapters 2
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch deepseek-v3-671b --batch 2 --prompt-len 4 --gen 3 --n-adapters 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch whisper-tiny --batch 2 --prompt-len 4 --gen 3 --n-adapters 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch qwen2-vl-7b --batch 2 --prompt-len 4 --gen 3 --n-adapters 2
 """
 from __future__ import annotations
 

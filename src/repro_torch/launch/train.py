@@ -25,6 +25,13 @@ Example:
         --arch jamba-v0.1-52b --method devft --layers 8 --rounds 2
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --arch deepseek-v3-671b --method devft --rounds 2
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --arch qwen2-vl-7b --method devft --rounds 2
+
+qwen2-vl-7b trains on text-only batches, as in the JAX package (its
+vision prefix runs when a batch carries ``vision_embeds``). The
+federated data carry no ``audio_embeds``, so whisper-tiny raises
+``KeyError: 'audio_embeds'`` here exactly as the JAX CLI does.
     PYTHONPATH=src python -m repro_torch.launch.train --dump-spec > run.json
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
-"""Shared transformer primitives: RMSNorm, RoPE, grouped-query
-attention, MLA (deepseek-v3's multi-head latent attention), the LoRA
-projection and the SwiGLU MLP.
+"""Shared transformer primitives: RMSNorm, RoPE and Qwen2-VL's M-RoPE
+(with its position streams), grouped-query attention, MLA (deepseek-v3's
+multi-head latent attention), the LoRA projection and the SwiGLU MLP.
 
 Kernel branches, as in the JAX package: ``attend`` sends calls that fit
 the flash kernel's contract (``_flash_eligible``) to ``flash_attention``,
@@ -80,6 +80,29 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float
     return torch.cos(ang), torch.sin(ang)
 
 
+def mrope_cos_sin(positions: torch.Tensor, sections: Tuple[int, ...],
+                  head_dim: int, theta: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL's multimodal RoPE. positions: (3, B, S) int — the
+    temporal, height and width streams; ``sections`` splits the
+    head_dim//2 frequency slots between them ((16, 24, 24) for head_dim
+    128). Text tokens carry one position in all three streams, which
+    gives ``rope_cos_sin``'s tables bit for bit (the angles are the same
+    products, laid out the same way)."""
+    half = head_dim // 2
+    assert sum(sections) == half, (sections, half)
+    dev = positions.device
+    exps = torch.arange(half, dtype=torch.float32, device=dev) / half
+    inv_freq = 1.0 / (theta ** exps)
+    # stream id of each frequency slot
+    stream = torch.repeat_interleave(
+        torch.arange(len(sections), device=dev),
+        torch.tensor(sections, device=dev))                   # (half,)
+    pos = positions.float().permute(1, 2, 0)[..., stream]     # (B,S,half)
+    ang = pos * inv_freq
+    return torch.cos(ang), torch.sin(ang)
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
     """x: (B, S, H, hd); cos/sin: (B, S, hd//2). Half-split rotation."""
@@ -88,6 +111,35 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     c = cos[:, :, None, :].to(x1.dtype)
     s = sin[:, :, None, :].to(x1.dtype)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def text_positions(batch: int, seq: int, offset=0,
+                   device=None) -> torch.Tensor:
+    """(B, S) int32 positions ``offset, offset + 1, ...`` in every row."""
+    p = torch.arange(seq, dtype=torch.int32, device=device)[None, :] + offset
+    return p.expand(batch, seq)
+
+
+def vlm_positions(batch: int, n_vis: int, n_text: int,
+                  grid: Optional[Tuple[int, int]] = None,
+                  device=None) -> torch.Tensor:
+    """(3, B, S) M-RoPE positions (the Qwen2-VL scheme): vision tokens
+    get (t=0, h, w) on a ``grid`` (default: sqrt(n_vis) rows, so 256
+    patches give 16 x 16), text tokens one sequential position in all
+    three streams, starting at max(gh, gw)."""
+    if grid is None:
+        side = max(int(math.sqrt(n_vis)), 1)
+        grid = (side, max(n_vis // side, 1))
+    gh, gw = grid
+    idx = torch.arange(n_vis, dtype=torch.int32, device=device)
+    vt = torch.zeros_like(idx)
+    vh = (idx // gw) % gh
+    vw = idx % gw
+    tpos = torch.arange(n_text, dtype=torch.int32,
+                        device=device) + max(gh, gw)
+    pos3 = torch.stack([torch.cat([vt, tpos]), torch.cat([vh, tpos]),
+                        torch.cat([vw, tpos])])                # (3, S)
+    return pos3[:, None, :].expand(3, batch, n_vis + n_text)
 
 
 # ---------------------------------------------------------------------------

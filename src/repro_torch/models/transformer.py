@@ -5,8 +5,14 @@ attention-free Mamba-2 blocks (``mamba_only``: mamba2-2.7b), the hybrid
 order of jamba-v0.1 (``mamba_mlp``, ``mamba_moe`` and ``gqa_mlp`` stacks
 interleaved by ``hybrid_order``), and deepseek-v3's MLA blocks
 (``mla_mlp`` for the dense prefix, then ``mla_moe`` with the shared
-expert; rotary tables over ``qk_rope_head_dim``). Every one of these
-kinds trains, runs DevFT's submodels and decodes.
+expert; rotary tables over ``qk_rope_head_dim``), and the two frontend
+orders: qwen2-vl's M-RoPE with its vision prefix (``vision_embeds``
+projected through ``vis_proj`` and prepended to the text; without a
+prefix the three position streams are equal and M-RoPE is RoPE) and
+whisper-tiny's encoder-decoder order (``enc`` blocks, non-causal over
+``audio_embeds`` and frozen, then ``dec`` blocks with a cross-attention
+to per-layer K/V of the encoder's output). Every kind of the JAX
+package trains, runs DevFT's submodels and decodes here.
 
 Parameters keep the JAX package's *stacked* layout: every leaf of a
 layer stack carries a leading ``(L, ...)`` layer axis, so DevFT's
@@ -21,13 +27,16 @@ window and SSM state) through those per-layer views.
 (non-reentrant); the JAX package's named ``jax.checkpoint_policies``
 have no counterpart here and raise.
 
-The enc-dec kinds and the multimodal frontends (whisper-tiny,
-qwen2-vl) raise ``NotImplementedError``; ROADMAP.md lists them.
+As in the JAX package, decoding fills no cross-attention cache:
+``init_cache`` zeros ``cross_k``/``cross_v`` and the serving engine
+never writes them; ``encoder_kv`` computes them for a caller that does.
 
 Public API:
     init_params(cfg, gen, dtype)                  -> params
     init_lora(cfg, gen, rank, dtype)              -> lora (mirrors stacks)
     init_cache(cfg, batch, capacity, dtype, device)
+    forward_hidden(cfg, params, lora, batch)      -> (h, aux, n_prefix)
+    encoder_kv(cfg, params, audio_embeds)         -> (cross K, cross V)
     loss_fn(cfg, params, lora, batch)             -> (loss, metrics)
     loss_and_lora_grads(cfg, params, lora, batch) -> (loss, metrics, grads)
     prefill(cfg, params, lora, batch)             -> last-token logits
@@ -47,9 +56,10 @@ from repro_torch.models import layers as Lyr
 from repro_torch.models import mamba2 as Mb
 from repro_torch.models import moe as Moe
 
-#: block kinds this package trains and decodes
+#: block kinds this package trains and decodes: every kind of the JAX
+#: package (``enc`` runs in training and prefill only)
 PORTED_KINDS = ("gqa_mlp", "gqa_moe", "mamba_only", "mamba_mlp",
-                "mamba_moe", "mla_mlp", "mla_moe")
+                "mamba_moe", "mla_mlp", "mla_moe", "enc", "dec")
 
 
 def stack_kinds(cfg) -> Dict[str, str]:
@@ -67,16 +77,6 @@ def stack_kinds(cfg) -> Dict[str, str]:
     if cfg.family == "ssm":
         return {"layers": "mamba_only"}
     return {"layers": "gqa_mlp"}
-
-
-def _check_ported(cfg) -> None:
-    have = sorted(set(stack_kinds(cfg).values()))
-    if not set(have) <= set(PORTED_KINDS) or cfg.frontend or cfg.mrope:
-        raise NotImplementedError(
-            f"{cfg.arch_id} ({cfg.family}: blocks {have}, frontend="
-            f"{cfg.frontend}, mrope={cfg.mrope}) is not ported yet; the port "
-            f"runs {list(PORTED_KINDS)} blocks (ROADMAP.md, 'Modules to "
-            f"port': the enc-dec and frontend items)")
 
 
 def stack_sizes(blocks: dict) -> Dict[str, int]:
@@ -135,9 +135,9 @@ def _init_block(gen: torch.Generator, cfg, kind: str, dtype,
             return {"ln1": ln1, "mixer": mixer}
     elif kind.startswith("mla"):
         mixer = Lyr.init_mla(gen, cfg, dtype, lead=(n,))
-    else:
+    else:                                               # gqa, enc, dec
         mixer = Lyr.init_gqa(gen, cfg, dtype, lead=(n,))
-    return {
+    p = {
         "ln1": ln1,
         "mixer": mixer,
         "ln2": torch.ones((n, d), dtype=dtype, device=dev),
@@ -145,6 +145,10 @@ def _init_block(gen: torch.Generator, cfg, kind: str, dtype,
         if kind.endswith("moe")
         else Lyr.init_mlp(gen, d, cfg.d_ff, dtype, lead=(n,)),
     }
+    if kind == "dec":
+        p["lnx"] = torch.ones((n, d), dtype=dtype, device=dev)
+        p["cross"] = Lyr.init_gqa(gen, cfg, dtype, lead=(n,))
+    return p
 
 
 def _block_lora_targets(cfg, kind: str):
@@ -170,7 +174,6 @@ def _block_lora_targets(cfg, kind: str):
 
 def init_params(cfg, gen: torch.Generator, dtype=None) -> dict:
     """Random parameters on ``gen.device`` (``cfg.dtype`` by default)."""
-    _check_ported(cfg)
     dtype = dtype or getattr(torch, cfg.dtype)
     dev = gen.device
     d, vp = cfg.d_model, cfg.padded_vocab
@@ -181,22 +184,29 @@ def init_params(cfg, gen: torch.Generator, dtype=None) -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = Lyr._randn(gen, (d, vp), dtype,
                                        1.0 / math.sqrt(d))
+    if cfg.frontend == "vision":
+        params["vis_proj"] = Lyr._randn(gen, (d, d), dtype,
+                                        1.0 / math.sqrt(d))
     sizes = dict(cfg.layer_stacks())
     params["blocks"] = {
         name: _init_block(gen, cfg, kind, dtype, sizes[name])
         for name, kind in stack_kinds(cfg).items()}
+    if cfg.is_encdec:
+        params["enc_norm"] = torch.ones((d,), dtype=dtype, device=dev)
     return params
 
 
 def init_lora(cfg, gen: torch.Generator, rank: int = 32,
               dtype=torch.float32) -> dict:
     """LoRA tree mirroring ``params['blocks']``: ``a`` random, ``b``
-    zero (the adapter starts as the identity)."""
-    _check_ported(cfg)
+    zero (the adapter starts as the identity). The encoder (``enc``)
+    stays frozen whole and gets none."""
     dev = gen.device
     sizes = dict(cfg.layer_stacks())
     out = {}
     for name, kind in stack_kinds(cfg).items():
+        if kind == "enc":
+            continue
         n = sizes[name]
         out[name] = {
             pname: {"a": Lyr._randn(gen, (n, din, rank), dtype,
@@ -224,9 +234,26 @@ def _ffn(p, cfg, kind, x):
                                              device=x.device)
 
 
+def _cross_attention(p, cfg, x, cos, sin, ek, ev, backend="reference"):
+    """A ``dec`` block's cross-attention residual: q from ``lnx``-normed
+    x through ``cross`` with the identity rotation (``cos * 0 + 1``,
+    ``sin * 0``: the JAX package's ops, so q is the same bits) and no
+    adapter, non-causal over the encoder's K/V ``ek``/``ev`` (B, Senc,
+    Hkv, hd), out through ``cross.wo``. Sq differs from Senc, so
+    ``attend`` keeps it plain whatever the backend."""
+    hx = Lyr.rms_norm(x, p["lnx"], cfg.norm_eps)
+    q, _, _ = Lyr.gqa_qkv(p["cross"], cfg, hx, cos * 0 + 1, sin * 0,
+                          lora=None)
+    cx = Lyr.attend(q, ek, ev, causal=False, backend=backend)
+    return x + Lyr._matmul(cx.reshape(x.shape[0], x.shape[1], -1),
+                           p["cross"]["wo"])
+
+
 def block_forward(p, cfg, kind, x, cos, sin, lora=None, *, window=None,
-                  causal=True):
-    """Pre-norm residual block over a whole sequence. Returns (y, aux)."""
+                  causal=True, enc_out=None):
+    """Pre-norm residual block over a whole sequence; a ``dec`` block
+    given ``enc_out = (K, V)`` adds its cross-attention after the
+    self-attention. Returns (y, aux)."""
     assert kind in PORTED_KINDS, kind
     h = Lyr.rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "mamba_only":
@@ -240,24 +267,43 @@ def block_forward(p, cfg, kind, x, cos, sin, lora=None, *, window=None,
     else:
         x = x + Lyr.gqa_attention(p["mixer"], cfg, h, cos, sin, lora=lora,
                                   window=window, causal=causal)
+    if kind == "dec" and enc_out is not None:
+        x = _cross_attention(p, cfg, x, cos, sin, *enc_out,
+                             backend=Lyr.model_backend(cfg))
     h2 = Lyr.rms_norm(x, p["ln2"], cfg.norm_eps)
     y, aux = _ffn(p, cfg, kind, h2)
     return x + y, aux
 
 
 def _embed_inputs(cfg, params, batch):
-    """Returns (x (B,S,d), cos, sin) for a text batch (the port runs no
-    multimodal frontend, so no prefix tokens precede the text); a pure
-    SSM needs no rotary tables (cos = sin = None)."""
+    """Returns (x (B,S,d), cos, sin, n_prefix). With qwen2-vl's vision
+    frontend and ``vision_embeds`` (B, n_patches, d) in the batch, the
+    patches (cast to the activations' dtype) go through ``vis_proj`` and
+    precede the text, ``n_prefix`` of them, with M-RoPE tables over
+    ``vlm_positions``; without them the three streams are ``arange(S)``.
+    A pure SSM needs no rotary tables (cos = sin = None)."""
     tokens = _on_device(batch["tokens"], params["embed"].device)
-    b, s = tokens.shape
+    b, s_text = tokens.shape
     x = params["embed"][tokens]
-    if cfg.attn_kind == "none":
-        return x, None, None
-    pos = torch.arange(s, dtype=torch.int32,
-                       device=tokens.device)[None, :].expand(b, s)
-    cos, sin = Lyr.rope_cos_sin(pos, rope_dim(cfg), cfg.rope_theta)
-    return x, cos, sin
+    n_prefix = 0
+    if cfg.frontend == "vision" and "vision_embeds" in batch:
+        ve = _on_device(batch["vision_embeds"], x.device).to(x.dtype)
+        ve = Lyr._matmul(ve, params["vis_proj"])
+        x = torch.cat([ve, x], dim=1)
+        n_prefix = ve.shape[1]
+    s = x.shape[1]
+    if cfg.mrope:
+        pos3 = Lyr.vlm_positions(b, n_prefix, s_text, device=x.device) \
+            if n_prefix else Lyr.text_positions(
+                b, s, device=x.device)[None].expand(3, b, s)
+        cos, sin = Lyr.mrope_cos_sin(pos3, cfg.mrope_sections, cfg.hd,
+                                     cfg.rope_theta)
+    elif cfg.attn_kind == "none":
+        cos = sin = None
+    else:
+        cos, sin = Lyr.rope_cos_sin(Lyr.text_positions(b, s, device=x.device),
+                                    rope_dim(cfg), cfg.rope_theta)
+    return x, cos, sin, n_prefix
 
 
 def rope_dim(cfg) -> int:
@@ -278,39 +324,94 @@ def _layer(stack, i: int):
     return None if stack is None else tree_map(lambda a: a[i], stack)
 
 
-def forward_hidden(cfg, params, lora, batch, *, window=None, remat=False):
-    """Run every layer in ``execution_order`` (per-layer views of the
-    stacked leaves); returns (final-normed hidden (B,S,d), aux), aux
-    summed layer by layer as the JAX package's scan carries it."""
-    _check_ported(cfg)
-    if remat not in (False, None, True):
-        raise NotImplementedError(
-            f"remat={remat!r}: named checkpoint policies are JAX's "
-            f"(jax.checkpoint_policies); the port has remat=True (whole "
-            f"blocks) or False (ROADMAP.md)")
-    x, cos, sin = _embed_inputs(cfg, params, batch)
+def _run_layers(cfg, blocks, lora, x, cos, sin, layers, *, window=None,
+                causal=True, enc_kv=None, remat=False):
+    """Run ``layers`` ([(stack, index), ...]) over x: per-layer views of
+    the stacked leaves, each block checkpointed whole under ``remat``;
+    ``enc_kv`` = (K, V) with a leading decoder-layer axis gives each
+    ``dec`` layer its own cross K/V. Returns (x, aux summed layer by
+    layer as the JAX package's scan carries it)."""
     kinds = stack_kinds(cfg)
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for name, i in execution_order(cfg, stack_sizes(params["blocks"])):
-        p = _layer(params["blocks"][name], i)
+    for name, i in layers:
+        p = _layer(blocks[name], i)
         lo = _layer(lora.get(name) if lora else None, i)
+        eo = None if enc_kv is None else (enc_kv[0][i], enc_kv[1][i])
 
-        def body(xc, p=p, lo=lo, kind=kinds[name]):
+        def body(xc, p=p, lo=lo, kind=kinds[name], eo=eo):
             return block_forward(p, cfg, kind, xc, cos, sin, lo,
-                                 window=window)
+                                 window=window, causal=causal, enc_out=eo)
         if remat:
             x, a = checkpoint(body, x, use_reentrant=False)
         else:
             x, a = body(x)
         total_aux = total_aux + a
-    return Lyr.rms_norm(x, params["final_norm"], cfg.norm_eps), total_aux
+    return x, total_aux
+
+
+def encoder_kv(cfg, params, audio_embeds, *, remat=False):
+    """whisper's encoder: ``audio_embeds`` (B, Senc, d) (cast to the
+    params' dtype) through every ``enc`` block, non-causal, with rotary
+    tables over the frame positions and no adapter, then ``enc_norm``,
+    then each decoder layer's cross K and V, (Ldec, B, Senc, Hkv, hd)
+    each (``enc_h @ cross.wk`` / ``cross.wv``, no bias, as in the JAX
+    package)."""
+    blocks = params["blocks"]
+    embed = params["embed"]
+    enc_x = _on_device(audio_embeds, embed.device).to(embed.dtype)
+    b, se = enc_x.shape[:2]
+    ecos, esin = Lyr.rope_cos_sin(
+        Lyr.text_positions(b, se, device=enc_x.device), cfg.hd,
+        cfg.rope_theta)
+    n_enc = stack_sizes(blocks)["enc"]
+    enc_h, _ = _run_layers(cfg, blocks, None, enc_x, ecos, esin,
+                           [("enc", i) for i in range(n_enc)], causal=False,
+                           remat=remat)
+    enc_h = Lyr.rms_norm(enc_h, params["enc_norm"], cfg.norm_eps)
+    cross = blocks["dec"]["cross"]
+    shape = (b, se, cfg.n_kv_heads, cfg.hd)
+    ks, vs = zip(*[(Lyr._matmul(enc_h, wk).reshape(shape),
+                    Lyr._matmul(enc_h, wv).reshape(shape))
+                   for wk, wv in zip(cross["wk"], cross["wv"])])
+    return torch.stack(ks), torch.stack(vs)
+
+
+def forward_hidden(cfg, params, lora, batch, *, window=None, remat=False):
+    """Run every layer in ``execution_order`` (per-layer views of the
+    stacked leaves); returns (final-normed hidden (B,S,d), aux, n_prefix):
+    aux summed layer by layer as the JAX package's scan carries it,
+    ``n_prefix`` the vision tokens ahead of the text. The enc-dec order
+    runs ``encoder_kv`` over ``batch['audio_embeds']`` first (a batch
+    without them raises ``KeyError``, as in the JAX package), then the
+    decoder over the text."""
+    if remat not in (False, None, True):
+        raise NotImplementedError(
+            f"remat={remat!r}: named checkpoint policies are JAX's "
+            f"(jax.checkpoint_policies); the port has remat=True (whole "
+            f"blocks) or False (ROADMAP.md)")
+    x, cos, sin, n_prefix = _embed_inputs(cfg, params, batch)
+    sizes = stack_sizes(params["blocks"])
+    enc_kv = None
+    if cfg.is_encdec:
+        enc_kv = encoder_kv(cfg, params, batch["audio_embeds"], remat=remat)
+        layers = [("dec", i) for i in range(sizes["dec"])]
+    else:
+        layers = execution_order(cfg, sizes)
+    x, total_aux = _run_layers(cfg, params["blocks"], lora, x, cos, sin,
+                               layers, window=window, enc_kv=enc_kv,
+                               remat=remat)
+    return (Lyr.rms_norm(x, params["final_norm"], cfg.norm_eps), total_aux,
+            n_prefix)
 
 
 def loss_fn(cfg, params, lora, batch, *, window=None, remat=False):
-    """Next-token cross-entropy on the text region. Returns (total,
-    {"loss", "aux", "acc"}); labels < 0 are masked out."""
-    h, aux = forward_hidden(cfg, params, lora, batch, window=window,
-                            remat=remat)
+    """Next-token cross-entropy on the text region (the vision prefix's
+    rows are dropped before the logits). Returns (total, {"loss", "aux",
+    "acc"}); labels < 0 are masked out."""
+    h, aux, n_prefix = forward_hidden(cfg, params, lora, batch,
+                                      window=window, remat=remat)
+    if n_prefix:
+        h = h[:, n_prefix:]
     logits = logits_from_hidden(cfg, params, h).float()
     labels = _on_device(batch["labels"], logits.device).long()
     logp = torch.log_softmax(logits, dim=-1)
@@ -350,7 +451,8 @@ def loss_and_lora_grads(cfg, params, lora, batch, *, window=None,
 
 def prefill(cfg, params, lora, batch, *, window=None):
     """Full-sequence forward; returns the last token's logits (B, 1, Vp)."""
-    h, _aux = forward_hidden(cfg, params, lora, batch, window=window)
+    h, _aux, _n_prefix = forward_hidden(cfg, params, lora, batch,
+                                        window=window)
     return logits_from_hidden(cfg, params, h[:, -1:])
 
 
@@ -362,7 +464,8 @@ def prefill(cfg, params, lora, batch, *, window=None):
 def block_decode(p, cfg, kind, x, cache, pos, cos, sin, lora=None):
     """Single-token pre-norm residual block; writes ``cache`` in place.
     ``mamba_only`` takes its Mamba cache as is, the other kinds under
-    ``"mixer"``. Returns (y, cache)."""
+    ``"mixer"``; a ``dec`` block also attends (plain, as in the JAX
+    package) over its ``cross_k``/``cross_v``. Returns (y, cache)."""
     h = Lyr.rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "mamba_only":
         mix, cache = Mb.mamba_decode(p["mixer"], cfg, h, cache, lora=lora)
@@ -379,6 +482,9 @@ def block_decode(p, cfg, kind, x, cache, pos, cos, sin, lora=None):
                                              cache["mixer"], pos, cos, sin,
                                              lora=lora)
     x = x + mix
+    if kind == "dec":
+        x = _cross_attention(p, cfg, x, cos, sin, cache["cross_k"],
+                             cache["cross_v"])
     h2 = Lyr.rms_norm(x, p["ln2"], cfg.norm_eps)
     y, _aux = _ffn(p, cfg, kind, h2)
     return x + y, cache
@@ -393,8 +499,13 @@ def _init_block_cache(cfg, kind, batch, capacity, dtype, device, lead):
     if kind.startswith("mla"):
         return {"mixer": Lyr.init_mla_cache(cfg, batch, capacity, dtype,
                                             device, lead=lead)}
-    return {"mixer": Lyr.init_gqa_cache(cfg, batch, capacity, dtype, device,
-                                        lead=lead)}
+    c = {"mixer": Lyr.init_gqa_cache(cfg, batch, capacity, dtype, device,
+                                     lead=lead)}
+    if kind == "dec":
+        shape = (*lead, batch, cfg.n_frontend_tokens, cfg.n_kv_heads, cfg.hd)
+        c["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return c
 
 
 def init_cache(cfg, batch: int, capacity: int, dtype=None,
@@ -404,13 +515,14 @@ def init_cache(cfg, batch: int, capacity: int, dtype=None,
     Hkv, hd); MLA ``{'mixer': {'c', 'k_rope'}}`` of (L, B, C,
     kv_lora_rank) and (L, B, C, qk_rope_head_dim); Mamba ``{'conv',
     'ssm'}`` (``mamba_only``) or the same under ``'mixer'``, ``ssm`` in
-    f32 — and per-slot positions ``pos (B,)``."""
-    _check_ported(cfg)
+    f32; ``dec`` adds zero ``cross_k``/``cross_v`` of (L, B,
+    n_frontend_tokens, Hkv, hd) and ``enc`` has none — and per-slot
+    positions ``pos (B,)``."""
     dtype = dtype or getattr(torch, cfg.dtype)
     sizes = dict(cfg.layer_stacks())
     stacks = {name: _init_block_cache(cfg, kind, batch, capacity, dtype,
                                       device, (sizes[name],))
-              for name, kind in stack_kinds(cfg).items()}
+              for name, kind in stack_kinds(cfg).items() if kind != "enc"}
     return {"stacks": stacks,
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
@@ -428,12 +540,17 @@ def decode_step(cfg, params, lora, token, cache):
     (B, 1, Vp), {"stacks": the same stacks, "pos": pos + 1});
     ``cache["pos"]`` itself is left as it was, so a caller can keep the
     old cursor of an inactive slot. A config without attention heads
-    gets zero rotary tables, as in the JAX package."""
-    _check_ported(cfg)
+    gets zero rotary tables, and an M-RoPE config its tables at ``pos``
+    in all three streams, as in the JAX package. The encoder does not
+    run: ``dec`` layers attend over the cache's ``cross_k``/``cross_v``."""
     x = params["embed"][token]
     b = token.shape[0]
     pos = cache["pos"]
-    if rope_dim(cfg):
+    if cfg.mrope:
+        cos, sin = Lyr.mrope_cos_sin(pos[None, :, None].expand(3, b, 1),
+                                     cfg.mrope_sections, cfg.hd,
+                                     cfg.rope_theta)
+    elif rope_dim(cfg):
         cos, sin = Lyr.rope_cos_sin(pos[:, None], rope_dim(cfg),
                                     cfg.rope_theta)
     else:
@@ -441,6 +558,8 @@ def decode_step(cfg, params, lora, token, cache):
                                 device=x.device)
     kinds = stack_kinds(cfg)
     for name, i in execution_order(cfg, stack_sizes(params["blocks"])):
+        if kinds[name] == "enc":
+            continue
         x, _ = block_decode(_layer(params["blocks"][name], i), cfg,
                             kinds[name], x,
                             _layer(cache["stacks"][name], i), pos, cos, sin,

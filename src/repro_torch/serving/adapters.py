@@ -11,7 +11,8 @@ capacity ``N``.
 
 On MLA (deepseek-v3) the targets are ``wq_b`` and ``wkv_b``; decoding
 merges each slot's ``wkv_b`` adapter into a per-slot up-projection
-(``layers.mla_decode``), as the JAX package does.
+(``layers.mla_decode``), as the JAX package does. On whisper-tiny the
+adapters cover the decoder (``dec``) only: the encoder stays frozen.
 
 Populations larger than residency are handled by LRU admission and
 eviction: ``add`` overwrites the least-recently-used unpinned row;

@@ -1,8 +1,10 @@
 """Ragged KV-cache manager: per-slot write cursors over the model's
 stacked cache tree, with reset-on-recycle. The tree holds each layer's
 K/V rows (attention), latent ``c`` and shared rotary key ``k_rope``
-(MLA) or conv window and f32 SSM state (Mamba-2); every leaf is ``(L,
-B, ...)``, so a slot is one lane of each.
+(MLA), conv window and f32 SSM state (Mamba-2), and whisper's decoder
+cross-attention K/V (``cross_k``/``cross_v``, which nothing in serving
+writes, as in the JAX package); every leaf is ``(L, B, ...)``, so a
+slot is one lane of each, and ``reset_slot`` zeros all of them.
 
 The decode cache (``transformer.init_cache``) carries a per-slot
 position vector ``pos (B,)``; the decode path writes each slot's new K/V

@@ -171,21 +171,28 @@ def test_port_imports_no_jax_and_no_repro():
 
 
 def test_ported_kinds_reach_mamba2_for_training_only():
-    """mamba2-2.7b, granite-moe-1b-a400m, jamba-v0.1-52b and
-    deepseek-v3-671b pass the port check (one check for training and
-    decoding); the enc-dec order (whisper-tiny) and the multimodal
-    frontend (qwen2-vl) still raise, naming ROADMAP.md. (The name is
-    the one this test had while only training was ported.)"""
+    """Every block kind of every config in the repo is ported, for
+    training and decoding alike, so the port keeps no check that refuses
+    one: the enc-dec order (whisper-tiny: ``enc``/``dec``) and the
+    multimodal frontend (qwen2-vl: ``gqa_mlp`` with M-RoPE) joined
+    mamba2-2.7b, granite-moe-1b-a400m, jamba-v0.1-52b and
+    deepseek-v3-671b, and ``PORTED_KINDS`` is the set of kinds the JAX
+    package's ``stack_kinds`` gives over all of them. (The name is the
+    one this test had while only training was ported.)"""
+    from repro.models import transformer as JT
     from repro_torch.models import transformer as T
     cfg = pcfgs.get_config("mamba2-2.7b")
     assert T.stack_kinds(cfg) == {"layers": "mamba_only"}
-    for arch in ("mamba2-2.7b", "granite-moe-1b-a400m", "jamba-v0.1-52b",
-                 "deepseek-v3-671b"):
-        T._check_ported(pcfgs.get_config(arch))
+    assert not hasattr(T, "_check_ported")
     assert set(T.stack_kinds(pcfgs.get_config("jamba-v0.1-52b")).values()) \
         == {"mamba_mlp", "mamba_moe", "gqa_mlp"}
     assert T.stack_kinds(pcfgs.get_config("deepseek-v3-671b")) \
         == {"dense": "mla_mlp", "moe": "mla_moe"}
-    for arch in ("whisper-tiny", "qwen2-vl-7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T._check_ported(pcfgs.get_config(arch))
+    assert T.stack_kinds(pcfgs.get_config("whisper-tiny")) \
+        == {"enc": "enc", "dec": "dec"}
+    jax_kinds = set()
+    for arch in jcfgs.ALL_ARCH_IDS:
+        kinds = JT.stack_kinds(jcfgs.get_config(arch))
+        assert T.stack_kinds(pcfgs.get_config(arch)) == kinds, arch
+        jax_kinds |= set(kinds.values())
+    assert set(T.PORTED_KINDS) == jax_kinds

@@ -128,11 +128,12 @@ def test_rotary_tables_take_the_rope_head_dim(test_spec):
     full = get_config(ARCH)
     assert (full.hd, PT.rope_dim(full)) == (56, 64)
     _, pcfg = _cfgs(test_spec)
-    x, cos, sin = PT._embed_inputs(pcfg, {"embed": torch.zeros(
+    x, cos, sin, n_prefix = PT._embed_inputs(pcfg, {"embed": torch.zeros(
         pcfg.padded_vocab, pcfg.d_model)}, {"tokens": np.zeros((2, 5),
                                                                np.int32)})
     assert tuple(cos.shape) == tuple(sin.shape) == (
         2, 5, pcfg.mla.qk_rope_head_dim // 2)
+    assert n_prefix == 0
     assert PT.rope_dim(get_config("mamba2-2.7b")) == 0
     assert PT.rope_dim(get_config("qwen2-7b")) == get_config("qwen2-7b").hd
 

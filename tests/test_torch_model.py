@@ -34,7 +34,7 @@ torch.set_num_threads(1)
 
 F32_TOL = 1e-4
 BF16_TOL = 1e-2
-ARCHS = ["qwen2-7b", "llama2-7b-proxy"]
+ARCHS = ["qwen2-7b", "llama2-7b-proxy", "qwen2-vl-7b", "whisper-tiny"]
 
 
 def _cfgs(arch, test_spec, dtype="float32"):
@@ -157,9 +157,11 @@ def test_proj_with_lora(batched, alpha):
 def test_gqa_qkv_and_mlp(arch, test_spec):
     jcfg, pcfg = _cfgs(arch, test_spec)
     rng = _rng("qkv", arch)
+    # the decoder stack of the enc-dec order, the only stack elsewhere
+    stack = "dec" if jcfg.is_encdec else "layers"
     layer = jax.tree.map(lambda a: a[0],
-                         _np_params(jcfg, rng)["blocks"]["layers"])
-    lora = jax.tree.map(lambda a: a[0], _np_lora(jcfg, rng))
+                         _np_params(jcfg, rng)["blocks"][stack])
+    lora = jax.tree.map(lambda a: a[0], _np_lora(jcfg, rng)[stack])
     x = rng.standard_normal((2, 1, jcfg.d_model)).astype(np.float32)
     pos = np.array([[3], [11]], np.int32)
     jc, js = JL.rope_cos_sin(jnp.asarray(pos), jcfg.hd, jcfg.rope_theta)
@@ -214,17 +216,36 @@ def test_init_trees_mirror_jax(arch, test_spec):
 
 
 def test_unported_block_kinds_raise(test_spec):
-    """The enc-dec order (whisper-tiny) and the multimodal frontend
-    (qwen2-vl) are not ported; the hybrid order
-    (``tests/test_torch_hybrid.py``) and MLA (deepseek-v3,
-    ``tests/test_torch_mla.py``) are."""
+    """Every block kind and frontend of the JAX package is ported now, so
+    nothing raises: the enc-dec order (whisper-tiny: a frozen ``enc``
+    stack with ``enc_norm``, ``dec`` blocks with ``lnx`` and ``cross``,
+    LoRA on ``dec`` only, a decode cache without the encoder and with
+    ``cross_k``/``cross_v``) and qwen2-vl's vision frontend
+    (``vis_proj``) build here, and their parity is in
+    ``tests/test_torch_encdec.py`` and ``tests/test_torch_frontend_vlm.py``;
+    the hybrid order (``tests/test_torch_hybrid.py``) and MLA
+    (deepseek-v3, ``tests/test_torch_mla.py``) as before. (The name is
+    the one this test had while the two frontend orders raised.)"""
     spec = ReducedSpec(**dataclasses.asdict(test_spec))
-    for arch in ("whisper-tiny", "qwen2-vl-7b"):
-        cfg = reduce_config(get_config(arch), spec)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PT.init_params(cfg, torch.Generator().manual_seed(0))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PT.init_cache(cfg, 1, 8, device="cpu")
+    assert not hasattr(PT, "_check_ported")
+    whisper = reduce_config(get_config("whisper-tiny"), spec)
+    gen = torch.Generator().manual_seed(0)
+    params = PT.init_params(whisper, gen)
+    assert sorted(params["blocks"]) == ["dec", "enc"]
+    assert "enc_norm" in params and "vis_proj" not in params
+    assert {"lnx", "cross"} <= set(params["blocks"]["dec"])
+    assert not {"lnx", "cross"} & set(params["blocks"]["enc"])
+    assert sorted(PT.init_lora(whisper, gen, rank=4)) == ["dec"]
+    cache = PT.init_cache(whisper, 3, 8, device="cpu")
+    assert sorted(cache["stacks"]) == ["dec"]
+    assert tuple(cache["stacks"]["dec"]["cross_k"].shape) == (
+        whisper.n_layers, 3, whisper.n_frontend_tokens,
+        whisper.n_kv_heads, whisper.hd)
+    qwen_vl = reduce_config(get_config("qwen2-vl-7b"), spec)
+    params = PT.init_params(qwen_vl, gen)
+    assert tuple(params["vis_proj"].shape) == (qwen_vl.d_model,) * 2
+    assert sorted(PT.init_cache(qwen_vl, 1, 8, device="cpu")["stacks"]) \
+        == ["layers"]
     jamba = reduce_config(get_config("jamba-v0.1-52b"), spec)
     params = PT.init_params(jamba, torch.Generator().manual_seed(0))
     assert sorted(params["blocks"]) == ["attn_mlp", "mamba_mlp", "mamba_moe"]
