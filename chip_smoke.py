@@ -76,6 +76,14 @@ order:
    and at the llama shape the error of the two row-sum denominators)
    and times of kernel, plain version and a PyTorch yardstick the port
    never calls, beside the bound;
+   then autotune: ``lora_matmul``, ``flash_attention``,
+   ``moe_expert_ffn`` and ``flash_decode`` tuned at their path shapes
+   into a temporary cache (each candidate plan timed after a clean L2
+   flush, the default first), default and tuned times and knobs, the
+   cache read back, every tuned call resolved through ``dispatch``
+   and held against its plain version, and the host time of one call
+   through the raw wrapper and through ``dispatch`` without and with
+   the cache installed;
 3. serving: qwen2-7b unreduced (28 layers, d 3584, 28/4 heads, vocab
    152064), then granite-moe-1b-a400m, mamba2-2.7b, jamba-v0.1-52b,
    deepseek-v3-671b, qwen2-vl-7b (text requests) and whisper-tiny (its
@@ -192,6 +200,13 @@ order:
    ``make_train_step`` step with the 256-patch vision prefix (S1280) on
    the run's base params and final LoRA, exact launches, profiled, and
    its loss and gradients through the kernels vs the plain path.
+   After the train parity phase, remat: full-width llama2-7b-proxy,
+   one ``make_train_step`` step of 4 x 1024 tokens under remat False,
+   True and ``dots_with_no_batch_dims_saveable``: ms per step, peak
+   memory, exact launches (the recompute launches each kernel again),
+   the one-card dry-run's predicted peak, FLOPs and roofline for the
+   same step beside them; the loss bit-equal and the LoRA gradients
+   within 1e-6 of their norm across the policies.
    After each of the five DevFT phases, its run's ``global`` adapter
    (``registry_from_run(..., personalize=False)``, bit-equal to the
    final LoRA) is served on the run's base params, 4 requests of 16 + 8
@@ -215,10 +230,11 @@ import time
 import numpy as np
 import torch
 
-#: H100 SXM published peaks (NVIDIA data sheet) used for the bounds
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12          # CUDA-core f32: the kernel's dot products
-BF16_FLOPS = 989e12        # dense bf16 tensor cores
+#: H100 SXM published peaks (NVIDIA data sheet) used for the bounds:
+#: HBM bytes/s, CUDA-core f32 FLOP/s (the f32 kernels' dot products) and
+#: dense bf16 tensor-core FLOP/s. ``main`` reads them from
+#: ``repro_torch.kernels.common`` once it has put the package on the path
+HBM_BYTES_PER_S = F32_FLOPS = BF16_FLOPS = None
 CUDA_ITERS = 30            # timed launches per measurement (median)
 TRAIN_ROUNDS = 3           # timed federated rounds after a warm-up (median)
 #: kernel-vs-plain limits: (max abs error, max row-scaled error). The
@@ -2340,6 +2356,192 @@ def _train_step_launches(cfg, n_enc=0):
             "ssd_scan_bshp": 0}
 
 
+#: the remat policies the remat phase drives: none, whole blocks, and
+#: the JAX package's dry-run's named policy (matmuls with no batch dims
+#: kept, the attention products and the kernels recomputed)
+REMAT_POLICIES = (False, True, "dots_with_no_batch_dims_saveable")
+REMAT_STEPS = 3             # timed make_train_step steps after a warm-up
+#: the LoRA gradients under a policy against remat=False: the recompute
+#: runs the same deterministic kernels on the same inputs
+REMAT_GRAD_TOL = 1e-6
+
+
+def remat_phase(seed: int = 0):
+    """Full-width llama2-7b-proxy, one ``make_train_step`` step (loss,
+    LoRA gradients, AdamW) of 4 x 1024 tokens, the training phase's
+    shapes, under each of ``REMAT_POLICIES``: ms per step (the median of
+    ``REMAT_STEPS`` warm steps), peak memory, exact launches (the
+    recompute runs every kernel again under a policy that checkpoints),
+    and the one-card dry-run's predicted peak and FLOPs for the same step
+    on meta tensors beside them. The loss must be bit-equal across the
+    policies and the LoRA gradients within ``REMAT_GRAD_TOL`` of the
+    norm."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.data.synthetic import (client_round_batches,
+                                            make_federated_data)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import init_adamw
+
+    cfg = get_config("llama2-7b-proxy")
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+           cfg.d_ff, cfg.vocab, cfg.dtype) == LLAMA_SHAPE,
+          f"llama2-7b-proxy config changed: {cfg}")
+    batch_size, seq, rank, lr = 4, 1024, 32, 1e-4
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_params(cfg, g)
+    lora = _nonzero_lora(T, cfg, g, rank, 0.02)
+    data = make_federated_data(cfg.vocab, n_clients=20, seed=seed)
+    b = client_round_batches(data, [0], 1, batch_size, seq, (seed, 0))
+    batch = {k: torch.as_tensor(v[0, 0]).cuda() for k, v in b.items()}
+    opt = init_adamw(lora)
+    shape = InputShape("chip 4x1024", seq, batch_size, "train")
+    kernels = _path_kernels()
+    n = cfg.n_layers
+    base = None
+    for remat in REMAT_POLICIES:
+        t0 = time.perf_counter()
+        fn, args = dryrun.build_cfg(cfg, shape, rank=rank, remat=remat)
+        pred = dryrun.measure(fn, args)
+        pred_peak = (pred["argument_size_in_bytes"]
+                     + pred["temp_size_in_bytes"])
+        dry_s = time.perf_counter() - t0
+        total, _m, grads = T.loss_and_lora_grads(cfg, params, lora, batch,
+                                                 remat=remat)
+        step = make_train_step(cfg, remat=remat)
+        step(params, lora, opt, batch, lr)              # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(REMAT_STEPS):
+            _reset_all_counts()
+            t0 = time.perf_counter()
+            new_lora, _opt, metrics = step(params, lora, opt, batch, lr)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            again = 1 if remat is False else 2
+            want = {fn.__name__: 0 for fn in kernels}
+            want["lora_matmul_fused"] = 2 * n * again
+            want["flash_attention_bshd"] = n * again
+            launches = {fn.__name__: fn.launches for fn in kernels}
+            check(launches == want, f"remat {remat!r}: launches {launches}, "
+                  f"want {want}")
+            _check_lora_variants(kernels[1], f"remat {remat!r}")
+            _check_flash_variant(kernels[2], f"remat {remat!r}")
+        peak = torch.cuda.max_memory_allocated()
+        ms = float(np.median(walls)) * 1e3
+        check(np.isfinite(float(metrics["loss"])),
+              f"remat {remat!r}: loss {metrics['loss']}")
+        gl = _leaves(grads)
+        if base is None:
+            base = (total, gl)
+            worst = 0.0
+        else:
+            check(torch.equal(total, base[0]),
+                  f"remat {remat!r}: loss {float(total)!r} is not "
+                  f"remat=False's {float(base[0])!r}")
+            worst = max(float(torch.linalg.vector_norm(x - y)
+                              / torch.linalg.vector_norm(y))
+                        for x, y in zip(gl, base[1]))
+            check(worst <= REMAT_GRAD_TOL,
+                  f"remat {remat!r}: LoRA gradients {worst:.3g} of their "
+                  f"norm from remat=False's (limit {REMAT_GRAD_TOL})")
+        print(f"[remat] llama2-7b-proxy full width, B{batch_size} S{seq}, "
+              f"remat={remat!r}: {ms:.1f} ms per step (median of "
+              f"{REMAT_STEPS}: {', '.join(f'{w * 1e3:.1f}' for w in walls)}"
+              f"), peak {peak / 2**30:.2f} GiB; launches {launches}; loss "
+              f"{float(total):.6f} (bit-equal), LoRA gradients "
+              f"{worst:.3g} of their norm from remat=False's")
+        roof = dryrun.roofline_terms(pred["flops"], pred["bytes"],
+                                     pred["dot_flops"])
+        t_least = 1e3 * max(roof["t_compute"], roof["t_memory"])
+        by_dtype = ", ".join(f"{k} {v / 1e12:.2f}"
+                             for k, v in sorted(pred["dot_flops"].items()))
+        print(f"[remat]   dry-run (meta, card path, {dry_s:.1f} s): peak "
+              f"{pred_peak / 2**30:.2f} GiB (measured/predicted "
+              f"{peak / pred_peak:.3f}), {pred['flops'] / 1e12:.2f} TFLOP "
+              f"({by_dtype}), {pred['bytes'] / 1e12:.3f} TB; roofline "
+              f"{roof['t_compute'] * 1e3:.1f} ms compute, "
+              f"{roof['t_memory'] * 1e3:.1f} ms memory (measured/roofline "
+              f"{ms / t_least:.2f})")
+        del grads, new_lora, _opt, step
+    _reset_all_counts()
+
+
+def autotune_phase(seed: int = 0):
+    """The four tunable kernels tuned at their path shapes into a
+    temporary cache (default plan first, a strict improvement to replace
+    it, clean L2 flushes), the cache written and read back, then every
+    tuned call resolved through ``dispatch`` with the cache installed and
+    held against its plain version at the kernel phases' limits."""
+    import tempfile
+
+    from repro_torch.kernels import autotune, dispatch
+
+    t0 = time.perf_counter()
+    before = dispatch.tuning_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = autotune.TuningCache(os.path.join(tmp, "tuning.json"))
+        results = autotune.autotune(cache=cache, iters=20, seed=seed)
+        cache.save()
+        read = autotune.TuningCache.load(cache.path)
+        check(read.data == cache.data, "the tuning cache did not round-trip")
+        for r in results:
+            print(f"[autotune] {r.kernel} {r.tag}: default "
+                  f"{r.default} {r.default_us:.2f} us, tuned {r.config} "
+                  f"{r.us:.2f} us ({r.default_us / r.us:.3f}x; "
+                  f"{r.n_candidates} plans timed)")
+        checked = autotune.verify_dispatch(read, seed=seed)
+        _dispatch_host_cost(read, seed)
+    check(dispatch.tuning_cache() is before,
+          "the autotune phase left another tuning cache installed")
+    check(len(checked) == len(results),
+          f"dispatch checked {len(checked)} tuned calls of {len(results)}")
+    for name, tag, cfg, err in checked:
+        print(f"[autotune] dispatch {name} {tag} {cfg}: row-scaled error "
+              f"{err:.3g} (limit {autotune.VERIFY_TOL[name]:.3g})")
+    _reset_all_counts()
+    print(f"[autotune] {len(results)} cases in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def _dispatch_host_cost(cache, seed: int = 0):
+    """Host time of one call at each path shape: the raw wrapper, then
+    resolved through ``dispatch.get_kernel`` per call (as ``kernels.ops``
+    does) with no tuning cache installed and with ``cache`` installed."""
+    from repro_torch.kernels import autotune, dispatch
+
+    dev = torch.device("cuda", 0)
+
+    def host_us(fn, args, kwargs):
+        for _ in range(3):
+            fn(args, kwargs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CUDA_ITERS):
+            fn(args, kwargs)
+        us = (time.perf_counter() - t0) / CUDA_ITERS * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    for name, tag, args, kwargs in autotune.path_cases(dev, seed):
+        raw = dispatch.get_kernel(name, "auto", dev, tuned=False)
+        times = {"raw": host_us(lambda a, k: raw(*a, **k), args, kwargs)}
+        for what, installed in (("dispatch", None), ("tuned", cache)):
+            previous = dispatch.set_tuning_cache(installed)
+            try:
+                times[what] = host_us(
+                    lambda a, k: dispatch.get_kernel(name, "auto", dev)(
+                        *a, **k), args, kwargs)
+            finally:
+                dispatch.set_tuning_cache(previous)
+        print(f"[autotune] host {name} {tag}: raw wrapper "
+              f"{times['raw']:.1f} us, through dispatch "
+              f"{times['dispatch']:.1f} us (no cache), "
+              f"{times['tuned']:.1f} us (cache installed) per call")
+
+
 def _kernels_vs_plain(tag, cfg, params, lora, batch):
     """Loss and every LoRA gradient through the kernels against the plain
     path (the ``reference`` backend) on the card, bf16, both with remat
@@ -3057,16 +3259,21 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, src)
+    global HBM_BYTES_PER_S, F32_FLOPS, BF16_FLOPS
+    from repro_torch.kernels.common import H100_BF16_FLOPS as BF16_FLOPS
+    from repro_torch.kernels.common import H100_F32_FLOPS as F32_FLOPS
+    from repro_torch.kernels.common import \
+        H100_HBM_BYTES_PER_S as HBM_BYTES_PER_S
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.flash_attention import flash_attention_bshd
     from repro_torch.kernels.flash_decode import flash_decode_bhrd
     from repro_torch.kernels.lora_matmul import lora_matmul_fused
     from repro_torch.kernels.moe_ffn import moe_expert_ffn_ecd
     from repro_torch.kernels.ssd_scan import ssd_scan_bshp
-    from repro_torch.launch.serve import setup_numerics
+    from repro_torch.launch.env import setup_environment
 
     t_start = time.perf_counter()
-    setup_numerics()
+    setup_environment("gpu")
     name, smi, build_s = device_phase(build)
     rows = kernel_phase(flash_decode_bhrd, ref.flash_decode_ref)
     lora_rows = lora_phase(lora_matmul_fused, ref.lora_matmul_ref)
@@ -3075,6 +3282,7 @@ def main() -> int:
     moe_rows = moe_phase(moe_expert_ffn_ecd, ref.moe_expert_ffn_ref)
     ssd_rows = ssd_phase(ssd_scan_bshp, ref.ssd_scan_bshp_chunked_ref,
                          ref.ssd_scan_bshp_ref)
+    autotune_phase()
     serve_launches = {arch: serve_arch_phase(arch) for arch in SERVE_ARCHS}
     torch.cuda.empty_cache()
     parity_phase()
@@ -3083,6 +3291,8 @@ def main() -> int:
     train_launches = train[-1]
     train_parity_phase(*train[:-1])
     del train
+    torch.cuda.empty_cache()
+    remat_phase()
     torch.cuda.empty_cache()
     path_steps = {"whisper-tiny train step": whisper_phase()}
     torch.cuda.empty_cache()

@@ -9,6 +9,9 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
+    INPUT_SHAPES,
+    LONG_CONTEXT_WINDOW,
+    InputShape,
     MLAConfig,
     MambaConfig,
     ModelConfig,
@@ -43,3 +46,7 @@ def get_config(arch_id: str) -> ModelConfig:
         f"repro_torch.configs.{_ARCH_MODULES[arch_id]}")
     return mod.CONFIG
 
+
+
+def get_shape(name: str) -> InputShape:
+    return INPUT_SHAPES[name]

@@ -2,7 +2,7 @@
 
 Pure data, field for field the same as the JAX package's configs, so a
 config (or a spec written by the JAX package) describes the same model
-in both. ``kernel_backend`` keeps its three values; in this package
+in both; the assigned input shapes are the same four. ``kernel_backend`` keeps its three values; in this package
 ``"pallas"`` names the hand-written Hopper kernels
 (``repro_torch.kernels.dispatch``). There is no ``cache_key``: PyTorch
 runs eagerly and has no compiled-program cache to key.
@@ -11,6 +11,25 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+# Sliding-window length used by full-attention archs for long_500k decode.
+LONG_CONTEXT_WINDOW = 4_096
 
 
 def pad_vocab(v: int, multiple: int = 128) -> int:
@@ -127,6 +146,26 @@ class ModelConfig:
                 ("moe", self.n_layers - self.moe.first_dense_layers),
             ]
         return [("layers", self.n_layers)]
+
+    def supports_shape(self, shape: InputShape) -> bool:
+        """All assigned archs support all 4 shapes (long_500k via sliding
+        window for full-attention families; native for ssm/hybrid)."""
+        if shape.kind == "decode" and self.family == "encoder_only":
+            return False  # (no encoder-only archs assigned)
+        return True
+
+    def effective_window(self, shape: InputShape) -> Optional[int]:
+        """Attention window to use for a given input shape.
+
+        ``long_500k`` on full-attention archs switches to a sliding window
+        (sub-quadratic requirement); SSM archs have no attention at all and
+        hybrids use the window for their sparse attention layers too.
+        """
+        if self.sliding_window is not None:
+            return self.sliding_window
+        if shape.name == "long_500k" and self.attn_kind != "none":
+            return LONG_CONTEXT_WINDOW
+        return None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,7 +22,7 @@ def _keep(keep: torch.Tensor, new, old):
     return tree_map(lambda n, o: torch.where(keep, n, o), new, old)
 
 
-def make_local_train(cfg, *, remat: bool = False, window=None):
+def make_local_train(cfg, *, remat: bool | str = False, window=None):
     """Returns local_train(params, lora, batches, lr, step_mask=None)
     -> (lora', metrics).
 

@@ -17,14 +17,34 @@ Resolution follows the **device**, never the host platform:
   resolution **raises** if the name has none or the card is not compute
   capability (9, 0). There is no silent fallback to the plain version
   on the card.
+
+Tuning (``repro_torch.kernels.autotune`` fills the cache): only when a
+tuning cache was installed on purpose (``set_tuning_cache``, or the file
+``$REPRO_TORCH_TUNING_CACHE`` names), ``get_kernel`` returns a tunable
+Hopper kernel for a CUDA tensor on ``auto``/``pallas`` behind a thin
+wrapper that looks the call's shapes up under the card's name and passes
+the tuned knobs to the kernel's ``plan`` (explicit keyword arguments
+win). A cached entry that the plan refuses raises; it is not dropped for
+the plan's own choice. With no cache installed, and for every CPU
+tensor, the kernel is returned as it is and no cache is read.
+
+Meta tensors (the one-card dry-run): within ``meta_kernels(stand_ins)``,
+a ``meta`` tensor on ``auto``/``pallas`` takes the kernel branch and
+resolves to the given shape-only stand-in; outside it, to the plain
+version, as any tensor that is not on the card.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
-from typing import Callable, Dict, List
+import functools
+import os
+from typing import Callable, Dict, List, Optional
 
 import torch
+
+from repro_torch.kernels import tuning
 
 
 class KernelBackend(str, enum.Enum):
@@ -54,7 +74,11 @@ def resolve(backend, device) -> str:
     kernel is asked for."""
     value = canonical(backend)
     device = torch.device(device)
-    if device.type != "cuda" or value == KernelBackend.REFERENCE.value:
+    if value == KernelBackend.REFERENCE.value:
+        return value
+    if device.type == "meta" and _META_KERNELS:
+        return KernelBackend.PALLAS.value
+    if device.type != "cuda":
         return KernelBackend.REFERENCE.value
     cap = torch.cuda.get_device_capability(device)
     if tuple(cap) != HOPPER:
@@ -74,6 +98,8 @@ def use_kernel(backend, device) -> bool:
 
 _KERNELS: Dict[str, Dict[str, Callable]] = {}
 _builtins_loaded = False
+#: shape-only stand-ins that meta tensors resolve to (``meta_kernels``)
+_META_KERNELS: Dict[str, Callable] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,9 +142,12 @@ def register_kernel(name: str, backend, fn: Callable) -> Callable:
     return fn
 
 
-def get_kernel(name: str, backend="auto", device="cpu") -> Callable:
+def get_kernel(name: str, backend="auto", device="cpu", *,
+               tuned: bool = True) -> Callable:
     """The implementation of ``name`` that runs on ``device`` under
-    ``backend`` (see the module docstring for the rule)."""
+    ``backend`` (see the module docstring for the rule); a tunable
+    Hopper kernel behind its tuning-cache lookup when a cache is
+    installed, unless ``tuned=False``."""
     _ensure_builtin_kernels()
     try:
         impls = _KERNELS[name]
@@ -126,11 +155,110 @@ def get_kernel(name: str, backend="auto", device="cpu") -> Callable:
         raise KeyError(f"unknown kernel {name!r}; "
                        f"known: {available_kernels()}") from None
     value = resolve(backend, device)
+    if value == KernelBackend.PALLAS.value \
+            and torch.device(device).type == "meta":
+        return _META_KERNELS[name]
     fn = impls.get(value)
     if fn is None:
         raise KeyError(f"kernel {name!r} has no {value!r} implementation "
                        f"for {torch.device(device)}")
+    if tuned and value == KernelBackend.PALLAS.value \
+            and name in tuning.KERNELS and tuning_cache() is not None:
+        return _tuned_wrapper(name, fn)
     return fn
+
+
+@contextlib.contextmanager
+def meta_kernels(stand_ins: Dict[str, Callable]):
+    """Within the block, ``meta`` tensors on ``auto``/``pallas`` take the
+    kernel branches and resolve to ``stand_ins`` (name -> a function
+    that makes the kernel's output from the shapes): the one-card
+    dry-run's view of the card's path."""
+    if _META_KERNELS:
+        raise RuntimeError("meta_kernels is already active")
+    _META_KERNELS.update(stand_ins)
+    try:
+        yield
+    finally:
+        _META_KERNELS.clear()
+
+
+# ---------------------------------------------------------------------------
+# Tuning-cache consultation (the read side; the autotuner fills it)
+# ---------------------------------------------------------------------------
+
+_TUNING: Dict[str, Optional[tuning.TuningCache]] = {"cache": None}
+#: the caches read from $REPRO_TORCH_TUNING_CACHE, by path (read once)
+_ENV_CACHES: Dict[str, tuning.TuningCache] = {}
+_TUNED_WRAPPERS: Dict[tuple, Callable] = {}
+
+
+def set_tuning_cache(cache: Optional[tuning.TuningCache]
+                     ) -> Optional[tuning.TuningCache]:
+    """Install ``cache`` for every later tuned resolution (None to
+    uninstall); returns the one installed before."""
+    previous, _TUNING["cache"] = _TUNING["cache"], cache
+    return previous
+
+
+def tuning_cache() -> Optional[tuning.TuningCache]:
+    """The cache installed on purpose: ``set_tuning_cache``'s, else the
+    file ``$REPRO_TORCH_TUNING_CACHE`` names (read once), else None."""
+    if _TUNING["cache"] is not None:
+        return _TUNING["cache"]
+    path = os.environ.get(tuning.CACHE_ENV)
+    if not path:
+        return None
+    if path not in _ENV_CACHES:
+        _ENV_CACHES[path] = tuning.TuningCache.load(path)
+    return _ENV_CACHES[path]
+
+
+@functools.lru_cache(maxsize=None)
+def _source_hash(name: str) -> str:
+    return tuning.source_hash(name)
+
+
+@functools.lru_cache(maxsize=16)
+def device_name(device: torch.device) -> str:
+    """The name of a CUDA device (cached per device)."""
+    return torch.cuda.get_device_name(device)
+
+
+def tuned_config(name: str, args=(), kwargs: Optional[dict] = None, *,
+                 device: Optional[str] = None,
+                 key: Optional[str] = None) -> Optional[Dict]:
+    """The tuned knobs for one call of kernel ``name`` (its positional
+    operands ``args`` and keyword arguments, or a precomputed ``key``) on
+    the card named ``device`` (default: the first operand's), or None
+    with no cache installed, on a miss or on a stale entry (the plan's
+    own knobs then)."""
+    cache = tuning_cache()
+    if cache is None:
+        return None
+    if device is None:
+        device = device_name(args[0].device)
+    if not cache.has_device(device):
+        return None
+    if key is None:
+        key = tuning.shape_key(name, args, kwargs)
+    return cache.lookup(device, name, key, _source_hash(name))
+
+
+def _tuned_wrapper(name: str, fn: Callable) -> Callable:
+    """``fn`` with the tuned knobs for the call's shapes merged under the
+    caller's keyword arguments (explicit ones win); memoized."""
+    wrapper = _TUNED_WRAPPERS.get((name, fn))
+    if wrapper is None:
+        @functools.wraps(fn, updated=())     # the counts stay on fn
+        def wrapper(*args, **kwargs):
+            knobs = tuned_config(name, args, kwargs)
+            if knobs:
+                kwargs = {**knobs, **kwargs}
+            return fn(*args, **kwargs)
+
+        _TUNED_WRAPPERS[(name, fn)] = wrapper
+    return wrapper
 
 
 def available_kernels() -> Dict[str, List[str]]:

@@ -115,15 +115,28 @@ def _tiles(s: int, bq: int, bkv: int, causal: bool,
     return total
 
 
+def _tiles_of(variant: str, d: int) -> Tuple[int, int, int]:
+    """(block_q, block_kv, stages) of ``variant`` at head dim ``d``: the
+    one tiling each variant instantiates."""
+    if variant == "wgmma":
+        return 128, 128, WGMMA_STAGES[d]
+    return (64, 64, 2) if variant == "mma_sync" else (32, 32, 1)
+
+
 @functools.lru_cache(maxsize=256)
 def plan(b: int, s: int, h: int, hkv: int, d: int, dtype: torch.dtype,
          causal: bool = True, window: Optional[int] = None, *,
          positive_scale: bool = True,
-         variant: Optional[str] = None) -> Plan:
+         variant: Optional[str] = None, block_q: Optional[int] = None,
+         block_kv: Optional[int] = None,
+         stages: Optional[int] = None) -> Plan:
     """The plan of a call with q (b, s, h, d) and k, v (b, s, hkv, d) of
     ``dtype`` (cached: a training path asks for a few shapes many times).
     ``variant`` forces another variant than the plan's own (for
-    measurements); raises where the kernel does not take the call."""
+    measurements). ``block_q``, ``block_kv``, ``stages`` (the autotuner's
+    knobs; one left out keeps the plan's own) select the variant that
+    instantiates that tiling. Raises where the kernel does not take the
+    call."""
     if min(b, s, h, hkv, d) < 1 or h % hkv:
         raise ValueError(f"flash_attention B={b} S={s} H={h} Hkv={hkv} "
                          f"D={d}: need positive sizes and H % Hkv == 0")
@@ -137,32 +150,38 @@ def plan(b: int, s: int, h: int, hkv: int, d: int, dtype: torch.dtype,
                          f"vectors")
     if window is not None and window < 1:
         raise ValueError(f"window must be a positive int, got {window}")
-    if variant is None:
-        variant = ("fma_f32" if dtype == torch.float32
-                   else "wgmma" if d in WGMMA_STAGES and positive_scale
-                   else "mma_sync")
-    elif variant not in _VARIANTS:
+    takes = [v for v in ("wgmma", "mma_sync", "fma_f32")
+             if (v == "fma_f32") == (dtype == torch.float32)
+             and (v != "wgmma" or (d in WGMMA_STAGES and positive_scale))]
+    if variant is not None and variant not in _VARIANTS:
         raise ValueError(f"unknown flash_attention variant {variant!r}")
-    elif (variant == "fma_f32") != (dtype == torch.float32) or (
-            variant == "wgmma"
-            and (d not in WGMMA_STAGES or not positive_scale)):
+    if variant is not None and variant not in takes:
         raise ValueError(f"variant {variant} does not take {dtype} D={d} "
                          f"(positive scale: {positive_scale})")
-    if variant == "wgmma":
-        bq = bkv = 128
-        stages = WGMMA_STAGES[d]
-    elif variant == "mma_sync":
-        bq = bkv = 64
-        stages = 2
-    else:
-        bq = bkv = 32
-        stages = 1
+    forced, variant = variant, variant or takes[0]
+    if (block_q, block_kv, stages) != (None, None, None):
+        want = tuple(o if k is None else k for o, k in zip(
+            _tiles_of(variant, d), (block_q, block_kv, stages)))
+        tiled = [v for v in takes if _tiles_of(v, d) == want]
+        if not tiled or (forced and forced not in tiled):
+            raise ValueError(
+                f"flash_attention {dtype} D={d}: no variant tiles "
+                f"(block_q, block_kv, stages) = {want}; it takes "
+                f"{[_tiles_of(v, d) for v in takes]}")
+        variant = forced or tiled[0]
+    bq, bkv, stages = _tiles_of(variant, d)
     smem = smem_bytes(variant, d, stages)
     if smem > MAX_SMEM:
         raise ValueError(f"head dim {d} needs {smem} bytes of shared memory, "
                          f"more than a block has")
     return Plan(variant, bq, bkv, stages, (_cdiv(s, bq), h, b), smem,
                 _tiles(s, bq, bkv, causal, window))
+
+
+def knobs(p: Plan) -> dict:
+    """The autotuner's knobs of plan ``p``."""
+    return {"block_q": p.block_q, "block_kv": p.block_kv,
+            "stages": p.stages}
 
 
 def _library():
@@ -213,9 +232,14 @@ def run_plan(p: Plan, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: Optional[int] = None,
-                         scale: Optional[float] = None) -> torch.Tensor:
+                         scale: Optional[float] = None,
+                         block_q: Optional[int] = None,
+                         block_kv: Optional[int] = None,
+                         stages: Optional[int] = None) -> torch.Tensor:
     """q: (B, S, H, D); k, v: (B, S, Hkv, D), one dtype (f32 or bf16) on
-    one CUDA device, H % Hkv == 0. Returns (B, S, H, D) in ``q.dtype``."""
+    one CUDA device, H % Hkv == 0. ``block_q``, ``block_kv`` and
+    ``stages`` override the plan's tiling (``plan``). Returns (B, S, H,
+    D) in ``q.dtype``."""
     if q.device.type != "cuda":
         raise ValueError(f"the Hopper flash_attention kernel takes CUDA "
                          f"tensors, got {q.device}")
@@ -252,7 +276,8 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.numel() == 0:
         return torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     p = plan(b, s, h, hkv, d, q.dtype, causal, window,
-             positive_scale=scale > 0)
+             positive_scale=scale > 0, block_q=block_q, block_kv=block_kv,
+             stages=stages)
     out = run_plan(p, q, k, v, causal=causal, window=window, scale=scale)
     flash_attention_bshd.launches += 1
     flash_attention_bshd.variants[p.variant] += 1

@@ -167,12 +167,17 @@ def _mma_refusal(b: int, h: int, hkv: int, hd: int, vd: int,
 @functools.lru_cache(maxsize=256)
 def plan(b: int, h: int, hkv: int, cap: int, hd: int, vd: int,
          q_dtype: torch.dtype, kv_dtype: torch.dtype, n_sm: int, *,
-         variant: Optional[str] = None) -> Plan:
+         variant: Optional[str] = None, chunk: Optional[int] = None,
+         stages: Optional[int] = None) -> Plan:
     """The plan of a call with q (b, 1, h, hd) of ``q_dtype`` and a cache
     k (b, cap, hkv, hd), v (b, cap, hkv, vd) of ``kv_dtype`` on a card
     with ``n_sm`` SMs (cached: serving asks for one shape per layer).
     ``variant`` forces another variant than the plan's own (for
-    measurements); raises where the kernel does not take the call."""
+    measurements). ``chunk`` and ``stages`` (the autotuner's knobs)
+    override the cache rows of a work item (tma_mma: a multiple of
+    MMA_TILE; fma: of TILE) and the ring's depth (tma_mma: MMA_MIN_STAGES
+    to what shared memory holds, at most MMA_MAX_STAGES; fma: 1). Raises
+    where the kernel does not take the call."""
     if min(b, h, hkv, cap, hd, vd, n_sm) < 1 or h % hkv:
         raise ValueError(f"flash_decode B={b} H={h} Hkv={hkv} C={cap} "
                          f"hd={hd} vd={vd}: need positive sizes and "
@@ -193,12 +198,20 @@ def plan(b: int, h: int, hkv: int, cap: int, hd: int, vd: int,
         raise ValueError(f"variant tma_mma does not take B={b} H={h} "
                          f"Hkv={hkv} hd={hd} vd={vd}: {refusal}")
     rep = h // hkv
+    tile = MMA_TILE if variant == "tma_mma" else TILE
+    if chunk is not None and (chunk < 1 or chunk % tile):
+        raise ValueError(f"flash_decode {variant} takes chunk a positive "
+                         f"multiple of {tile}, not {chunk}")
     if variant == "tma_mma":
-        chunk = mma_chunk(b, hkv, cap, n_sm)
+        chunk = chunk or mma_chunk(b, hkv, cap, n_sm)
         nchunk = _cdiv(cap, chunk)
         base = mma_smem_bytes(hd, vd, rep, 0, b)
         per_stage = mma_smem_bytes(hd, vd, rep, 1, b) - base
-        stages = min(MMA_MAX_STAGES, (MAX_SMEM - base) // per_stage)
+        most = min(MMA_MAX_STAGES, (MAX_SMEM - base) // per_stage)
+        if stages is not None and not MMA_MIN_STAGES <= stages <= most:
+            raise ValueError(f"flash_decode tma_mma takes {MMA_MIN_STAGES} "
+                             f"to {most} stages here, not {stages}")
+        stages = stages or most
         return Plan(variant, chunk, nchunk,
                     (min(n_sm, b * hkv * nchunk), 1, 1), stages,
                     base + stages * per_stage)
@@ -209,9 +222,20 @@ def plan(b: int, h: int, hkv: int, cap: int, hd: int, vd: int,
     if smem > MAX_SMEM:
         raise ValueError(f"hd={hd}, vd={vd} need more shared memory than "
                          f"a block has")
-    chunk, nsplit = split_plan(b, h, hkv, cap, n_sm)
+    if stages not in (None, 1):
+        raise ValueError(f"flash_decode fma loads synchronously (stages "
+                         f"1), not {stages}")
+    if chunk is None:
+        chunk, nsplit = split_plan(b, h, hkv, cap, n_sm)
+    else:
+        nsplit = _cdiv(cap, chunk)
     return Plan("fma", chunk, nsplit,
                 (nsplit, hkv * _cdiv(rep, FMA_MAX_REP), b), 1, smem)
+
+
+def knobs(p: Plan) -> dict:
+    """The autotuner's knobs of plan ``p``."""
+    return {"chunk": p.chunk, "stages": p.stages}
 
 
 def live_chunks(valid: Sequence[int], cap: int, chunk: int
@@ -305,10 +329,13 @@ def run_plan(p: Plan, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_decode_bhrd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       kv_valid_len: torch.Tensor,
-                      scale: Optional[float] = None) -> torch.Tensor:
+                      scale: Optional[float] = None,
+                      chunk: Optional[int] = None,
+                      stages: Optional[int] = None) -> torch.Tensor:
     """q: (B, 1, H, hd); k: (B, C, Hkv, hd); v: (B, C, Hkv, vd), all on
-    one CUDA device; kv_valid_len: (B,) int32. Returns (B, 1, H, vd) in
-    ``v.dtype`` (the plain version's dtype)."""
+    one CUDA device; kv_valid_len: (B,) int32. ``chunk`` and ``stages``
+    override the plan's (``plan``). Returns (B, 1, H, vd) in ``v.dtype``
+    (the plain version's dtype)."""
     if q.device.type != "cuda":
         raise ValueError(f"the Hopper flash_decode kernel takes CUDA "
                          f"tensors, got {q.device}")
@@ -343,7 +370,8 @@ def flash_decode_bhrd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"(hd={hd}, vd={vd}, {k.dtype}) at 16-byte "
                          f"aligned addresses")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    p = plan(b, h, hkv, cap, hd, vd, q.dtype, k.dtype, sm_count(q.device))
+    p = plan(b, h, hkv, cap, hd, vd, q.dtype, k.dtype, sm_count(q.device),
+             chunk=chunk, stages=stages)
     out = run_plan(p, q, k, v, kv_valid_len, scale)
     flash_decode_bhrd.launches += 1
     flash_decode_bhrd.variants[p.variant] += 1

@@ -28,7 +28,7 @@ import collections
 import ctypes
 import dataclasses
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -82,25 +82,42 @@ def _block_n(m: int, n_pad: int) -> int:
     return 256 if waves[256] * WIDE_TILE_COST < waves[128] else 128
 
 
+#: the main kernel's tile widths each variant instantiates
+BLOCK_NS = {"wgmma": (128, 256), "fma_f32": (64,)}
+
+
 @functools.lru_cache(maxsize=256)
-def plan(m: int, k: int, n: int, r: int, dtype: torch.dtype) -> Plan:
+def plan(m: int, k: int, n: int, r: int, dtype: torch.dtype, *,
+         block_n: Optional[int] = None) -> Plan:
     """The plan of a call with x (m, k), w (k, n), a (k, r), b (r, n)
-    (cached: a training path asks for a few shapes many times)."""
+    (cached: a training path asks for a few shapes many times).
+    ``block_n`` overrides the tile width (the autotuner's knob); raises
+    where the variant has no such tile."""
     if min(m, k, n, r) < 1:
         raise ValueError(f"empty lora_matmul M={m} K={k} N={n} r={r}")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the lora_matmul kernel takes f32 or bf16, got "
+                         f"{dtype}")
+    variant = "wgmma" if dtype == torch.bfloat16 else "fma_f32"
+    if block_n is not None and block_n not in BLOCK_NS[variant]:
+        raise ValueError(f"lora_matmul {variant} takes block_n in "
+                         f"{BLOCK_NS[variant]}, not {block_n}")
     r_pad = round_up(r, 64)
-    if dtype == torch.bfloat16:
+    if variant == "wgmma":
         k_pad, n_pad, r_a = round_up(k, 8), round_up(n, 8), round_up(r, 8)
-        block_n = _block_n(m, n_pad)
+        block_n = block_n or _block_n(m, n_pad)
         return Plan("wgmma", r_pad, k_pad, n_pad, r_a, block_n,
                     (_cdiv(m, 128) * _cdiv(n_pad, block_n), 1),
                     (_cdiv(m, 32), r_pad // 64),
                     padded=(k_pad, n_pad, r_a) != (k, n, r))
-    if dtype == torch.float32:
-        return Plan("fma_f32", r_pad, k, n, r, 64,
-                    (_cdiv(n, 64), _cdiv(m, 64)),
-                    (r_pad // 64, _cdiv(m, 64)), padded=False)
-    raise ValueError(f"the lora_matmul kernel takes f32 or bf16, got {dtype}")
+    return Plan("fma_f32", r_pad, k, n, r, 64,
+                (_cdiv(n, 64), _cdiv(m, 64)),
+                (r_pad // 64, _cdiv(m, 64)), padded=False)
+
+
+def knobs(p: Plan) -> dict:
+    """The autotuner's knobs of plan ``p``."""
+    return {"block_n": p.block_n}
 
 
 def _lib():
@@ -183,11 +200,12 @@ def run_plan(p: Plan, x2: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
 
 
 def lora_matmul_fused(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
-                      b: torch.Tensor, *, scaling: float = 1.0
-                      ) -> torch.Tensor:
+                      b: torch.Tensor, *, scaling: float = 1.0,
+                      block_n: Optional[int] = None) -> torch.Tensor:
     """x: (..., K); w: (K, N); a: (K, r); b: (r, N), all one dtype (f32
     or bf16) on one CUDA device, any r >= 1. ``scaling`` (alpha / r) is a
-    Python number, passed by value. Returns (..., N) in ``x.dtype``."""
+    Python number, passed by value. ``block_n`` overrides the plan's tile
+    width (``plan``). Returns (..., N) in ``x.dtype``."""
     if x.dtype not in _DTYPES or not (x.dtype == w.dtype == a.dtype
                                       == b.dtype):
         raise ValueError(f"dtypes x={x.dtype} w={w.dtype} a={a.dtype} "
@@ -218,7 +236,7 @@ def lora_matmul_fused(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     m = x2.shape[0]
     if m == 0:
         return torch.empty((*lead, n), dtype=x.dtype, device=x.device)
-    p = plan(m, k_dim, n, r, x.dtype)
+    p = plan(m, k_dim, n, r, x.dtype, block_n=block_n)
     out = run_plan(p, x2, w, a, b, scaling).reshape(*lead, n)
     lora_matmul_fused.launches += 1
     lora_matmul_fused.variants[p.variant] += 1

@@ -111,13 +111,20 @@ def _block_n(row_tiles: int, d_pad: int) -> int:
     return 256 if waves[256] * WIDE_TILE_COST < waves[128] else 128
 
 
+#: pass 2's tile widths each variant instantiates
+BLOCK_NS = {"wgmma": (128, 256), "mma_sync": (128,), "fma": (64,)}
+
+
 @functools.lru_cache(maxsize=256)
 def plan(e: int, c: int, d: int, ff: int, dtype: torch.dtype, *,
-         variant: Optional[str] = None) -> Plan:
+         variant: Optional[str] = None,
+         block_n: Optional[int] = None) -> Plan:
     """The plan of a call with buf (e, c, d), wg/wu (e, d, ff), wd (e, ff,
     d) of ``dtype`` (cached: a training path asks for one shape per
     layer). ``variant`` forces another variant than the plan's own (for
-    measurements); raises where it does not take the dtype."""
+    measurements); ``block_n`` overrides pass 2's tile width (the
+    autotuner's knob); raises where the variant does not take the dtype
+    or has no such tile."""
     if min(e, c, d, ff) < 1:
         raise ValueError(f"empty moe_expert_ffn E={e} C={c} d={d} ff={ff}")
     if dtype not in (torch.float32, torch.bfloat16):
@@ -130,10 +137,13 @@ def plan(e: int, c: int, d: int, ff: int, dtype: torch.dtype, *,
     if _DTYPES[variant] != dtype:
         raise ValueError(f"variant {variant} takes {_DTYPES[variant]}, not "
                          f"{dtype}")
+    if block_n is not None and block_n not in BLOCK_NS[variant]:
+        raise ValueError(f"moe_expert_ffn {variant} takes block_n in "
+                         f"{BLOCK_NS[variant]}, not {block_n}")
     if variant == "wgmma":
         d_pad, ff_pad = round_up(d, 8), round_up(ff, 8)
         row_tiles = e * _cdiv(c, 128)
-        block_n = _block_n(row_tiles, d_pad)
+        block_n = block_n or _block_n(row_tiles, d_pad)
         return Plan("wgmma", d_pad, ff_pad, 128, 128, block_n,
                     (row_tiles * _cdiv(ff_pad, 128), 1, 1),
                     (row_tiles * _cdiv(d_pad, block_n), 1, 1),
@@ -144,6 +154,11 @@ def plan(e: int, c: int, d: int, ff: int, dtype: torch.dtype, *,
     return Plan(variant, d, ff, bm, width, bn,
                 (_cdiv(ff, width), _cdiv(c, bm), e),
                 (_cdiv(d, bn), _cdiv(c, bm), e), smem, smem, padded=False)
+
+
+def knobs(p: Plan) -> dict:
+    """The autotuner's knobs of plan ``p``."""
+    return {"block_n": p.block_n}
 
 
 def live_tiles(p: Plan, c: int, fill: Optional[Sequence[int]]
@@ -212,11 +227,13 @@ def run_plan(p: Plan, buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
 
 def moe_expert_ffn_ecd(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                        wd: torch.Tensor, *,
-                       fill: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       fill: Optional[torch.Tensor] = None,
+                       block_n: Optional[int] = None) -> torch.Tensor:
     """buf: (E, C, d); wg, wu: (E, d, ff); wd: (E, ff, d), one dtype (f32
     or bf16), contiguous, on one CUDA device (bf16: 16-byte aligned).
     ``fill``: None, or (E,) int32 on the same device, expert e's rows at
-    or past ``fill[e]`` giving zeros. Returns (E, C, d) in ``buf.dtype``:
+    or past ``fill[e]`` giving zeros. ``block_n`` overrides the plan's
+    pass-2 tile width (``plan``). Returns (E, C, d) in ``buf.dtype``:
     f32 accumulation, one rounding at the end (in bf16 the hidden is
     rounded to bf16 for the tensor cores)."""
     tensors = (buf, wg, wu, wd)
@@ -256,7 +273,7 @@ def moe_expert_ffn_ecd(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                          f"{tuple(fill.shape)} on {fill.device}")
     if buf.numel() == 0 or ff == 0:
         return torch.zeros_like(buf)
-    p = plan(e, c, d, ff, buf.dtype)
+    p = plan(e, c, d, ff, buf.dtype, block_n=block_n)
     out = run_plan(p, buf, wg, wu, wd, fill)
     moe_expert_ffn_ecd.launches += 1
     moe_expert_ffn_ecd.variants[p.variant] += 1

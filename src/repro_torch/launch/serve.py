@@ -44,17 +44,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ALL_ARCH_IDS, get_config, reduce_config
+from repro_torch.launch.env import setup_environment
 from repro_torch.lora.lora import merge_lora
 from repro_torch.models import transformer as T
 from repro_torch.serving import AdapterRegistry, ServingEngine, check_capacity
-
-
-def setup_numerics() -> None:
-    """Full-precision f32 matrix products and convolutions on the card
-    (cuBLAS and cuDNN would otherwise be free to use TF32), so f32 runs
-    are comparable with the CPU and with the JAX package."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 @torch.no_grad()
@@ -132,7 +125,7 @@ def main(argv=None):
     if args.device == "cuda" and not torch.cuda.is_available():
         ap.error("--device cuda: no CUDA device is visible (use --device cpu)")
 
-    setup_numerics()
+    setup_environment()
     cfg = reduce_config(get_config(args.arch))
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     params = T.init_params(cfg, gen, torch.float32)

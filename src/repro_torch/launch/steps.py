@@ -28,9 +28,11 @@ from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import adamw_update
 
 
-def make_train_step(cfg, *, window: Optional[int] = None, remat=True):
-    """remat: True (checkpoint every block) or False; the JAX package's
-    named policies raise ``NotImplementedError``."""
+def make_train_step(cfg, *, window: Optional[int] = None,
+                    remat: bool | str = True):
+    """remat: True (checkpoint every block), False, or the name of a
+    plain ``jax.checkpoint_policies`` policy
+    (``transformer.REMAT_POLICIES``)."""
     def train_step(params, lora, opt_state, batch, lr):
         _total, metrics, grads = T.loss_and_lora_grads(
             cfg, params, lora, batch, window=window, remat=remat)
@@ -57,7 +59,7 @@ def make_serve_step(cfg):
 
 
 def make_federated_round_step(cfg, *, k_local: int, window=None,
-                              remat: bool = True,
+                              remat: bool | str = True,
                               aggregation: str = "fedavg",
                               agg_kwargs: Optional[dict] = None,
                               hetero: bool = False):

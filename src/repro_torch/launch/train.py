@@ -54,7 +54,7 @@ from repro_torch.federated import (
     available_methods,
 )
 from repro_torch.kernels.dispatch import BACKENDS
-from repro_torch.launch.serve import setup_numerics
+from repro_torch.launch.env import setup_environment
 
 DEFAULT_PRESET = "paper-appendix-b"
 
@@ -179,7 +179,7 @@ def main(argv=None):
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is visible (use "
                          "--device cpu)")
-    setup_numerics()
+    setup_environment()
 
     def progress(log):
         print(f"round {log.round:3d} stage {log.stage} cap {log.capacity:3d}"

@@ -95,9 +95,9 @@ def mrope_cos_sin(positions: torch.Tensor, sections: Tuple[int, ...],
     exps = torch.arange(half, dtype=torch.float32, device=dev) / half
     inv_freq = 1.0 / (theta ** exps)
     # stream id of each frequency slot
-    stream = torch.repeat_interleave(
+    stream = torch.repeat_interleave(                        # (half,)
         torch.arange(len(sections), device=dev),
-        torch.tensor(sections, device=dev))                   # (half,)
+        torch.tensor(sections, device=dev), output_size=half)
     pos = positions.float().permute(1, 2, 0)[..., stream]     # (B,S,half)
     ang = pos * inv_freq
     return torch.cos(ang), torch.sin(ang)

@@ -23,9 +23,15 @@ buffer donation. The hybrid order runs layer by layer in
 ``execution_order``, as the JAX package's unrolled loop does.
 ``decode_step`` writes the caches in place (K/V rows, the Mamba conv
 window and SSM state) through those per-layer views.
-``remat=True`` checkpoints each block with ``torch.utils.checkpoint``
-(non-reentrant); the JAX package's named ``jax.checkpoint_policies``
-have no counterpart here and raise.
+``remat`` checkpoints each block as the JAX package wraps each layer's
+body in ``jax.checkpoint``: ``True`` with ``torch.utils.checkpoint``
+(non-reentrant), which recomputes the whole block in the backward, and
+the six plain ``jax.checkpoint_policies`` names through a selective
+checkpoint that keeps the outputs of the matmul ops the policy names
+(``REMAT_POLICIES``). The hand kernels launch through ctypes inside
+autograd Functions, where the policy cannot see them, so every policy
+that checkpoints runs them again in the recompute, as JAX recomputes a
+``pallas_call`` under its dot policies.
 
 As in the JAX package, decoding fills no cross-attention cache:
 ``init_cache`` zeros ``cross_k``/``cross_v`` and the serving engine
@@ -45,11 +51,13 @@ Public API:
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Optional
+from typing import Dict, FrozenSet, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.interop import tree_leaves, tree_map, tree_paths
 from repro_torch.models import layers as Lyr
@@ -324,13 +332,81 @@ def _layer(stack, i: int):
     return None if stack is None else tree_map(lambda a: a[i], stack)
 
 
+_aten = torch.ops.aten
+_DOTS = frozenset((_aten.mm, _aten.addmm, _aten.bmm, _aten.baddbmm))
+#: a product with no batch dims: (B, S, D) @ (D, N) folds to ``mm``; the
+#: attention ``einsum``s go to ``bmm`` (a ``dot_general`` with batch
+#: dims in JAX)
+_DOTS_2D = frozenset((_aten.mm, _aten.addmm))
+
+#: the plain ``jax.checkpoint_policies`` names -> the aten ops whose
+#: outputs a checkpointed block keeps for the backward. None: every op
+#: (the block runs without a checkpoint, which is what JAX's policy
+#: amounts to); empty: none (the same as ``remat=True``)
+REMAT_POLICIES: Dict[str, Optional[FrozenSet]] = {
+    "everything_saveable": None,
+    "nothing_saveable": frozenset(),
+    "dots_saveable": _DOTS,
+    "checkpoint_dots": _DOTS,
+    "dots_with_no_batch_dims_saveable": _DOTS_2D,
+    "checkpoint_dots_with_no_batch_dims": _DOTS_2D,
+}
+#: the ``jax.checkpoint_policies`` that JAX builds from arguments (names,
+#: an offload destination, two policies): a bare name cannot select them
+FACTORY_POLICIES = ("save_only_these_names", "save_any_names_but_these",
+                    "save_anything_except_these_names",
+                    "save_and_offload_only_these_names",
+                    "offload_dot_with_no_batch_dims",
+                    "save_from_both_policies")
+
+
+def remat_saved_ops(remat) -> Optional[FrozenSet]:
+    """What a block keeps under ``remat`` (False | None | True | a plain
+    policy name): None runs it without a checkpoint, an empty set
+    recomputes it whole, else the aten ops whose outputs it keeps. A
+    factory policy raises ``ValueError``, an unknown name
+    ``AttributeError`` (JAX's ``getattr`` on ``jax.checkpoint_policies``)."""
+    if remat is False or remat is None:
+        return None
+    if remat is True:
+        return frozenset()
+    if remat in FACTORY_POLICIES:
+        raise ValueError(f"remat={remat!r}: the policy is built from "
+                         f"arguments in JAX; a bare name selects only "
+                         f"{sorted(REMAT_POLICIES)}")
+    try:
+        return REMAT_POLICIES[remat]
+    except (KeyError, TypeError):
+        raise AttributeError(f"jax.checkpoint_policies has no attribute "
+                             f"{remat!r}") from None
+
+
+def _keep_saved(saved, ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op.overloadpacket in saved
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(body, saved: Optional[FrozenSet]):
+    """``body`` under ``saved`` (``remat_saved_ops``)."""
+    if saved is None:
+        return body
+    kw = {}
+    if saved:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts,
+            functools.partial(_keep_saved, saved))
+    return lambda *a: checkpoint(body, *a, use_reentrant=False, **kw)
+
+
 def _run_layers(cfg, blocks, lora, x, cos, sin, layers, *, window=None,
                 causal=True, enc_kv=None, remat=False):
     """Run ``layers`` ([(stack, index), ...]) over x: per-layer views of
-    the stacked leaves, each block checkpointed whole under ``remat``;
-    ``enc_kv`` = (K, V) with a leading decoder-layer axis gives each
-    ``dec`` layer its own cross K/V. Returns (x, aux summed layer by
-    layer as the JAX package's scan carries it)."""
+    the stacked leaves, each block checkpointed under ``remat``
+    (``remat_saved_ops``); ``enc_kv`` = (K, V) with a leading
+    decoder-layer axis gives each ``dec`` layer its own cross K/V.
+    Returns (x, aux summed layer by layer as the JAX package's scan
+    carries it)."""
+    saved = remat_saved_ops(remat)
     kinds = stack_kinds(cfg)
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for name, i in layers:
@@ -341,10 +417,7 @@ def _run_layers(cfg, blocks, lora, x, cos, sin, layers, *, window=None,
         def body(xc, p=p, lo=lo, kind=kinds[name], eo=eo):
             return block_forward(p, cfg, kind, xc, cos, sin, lo,
                                  window=window, causal=causal, enc_out=eo)
-        if remat:
-            x, a = checkpoint(body, x, use_reentrant=False)
-        else:
-            x, a = body(x)
+        x, a = _remat_wrap(body, saved)(x)
         total_aux = total_aux + a
     return x, total_aux
 
@@ -384,11 +457,7 @@ def forward_hidden(cfg, params, lora, batch, *, window=None, remat=False):
     runs ``encoder_kv`` over ``batch['audio_embeds']`` first (a batch
     without them raises ``KeyError``, as in the JAX package), then the
     decoder over the text."""
-    if remat not in (False, None, True):
-        raise NotImplementedError(
-            f"remat={remat!r}: named checkpoint policies are JAX's "
-            f"(jax.checkpoint_policies); the port has remat=True (whole "
-            f"blocks) or False (ROADMAP.md)")
+    remat_saved_ops(remat)              # a bad name raises before any work
     x, cos, sin, n_prefix = _embed_inputs(cfg, params, batch)
     sizes = stack_sizes(params["blocks"])
     enc_kv = None

@@ -1,7 +1,7 @@
 """The PyTorch port's training forward and backward against the JAX
 package: ``loss_fn`` and the LoRA gradients (``jax.value_and_grad`` of
 the JAX ``loss_fn``) on reduced ``llama2-7b-proxy`` and ``qwen2-7b``
-(GQA, qkv bias), ``remat=True``, and ``prefill``.
+(GQA, qkv bias), ``remat=True`` and a named policy, and ``prefill``.
 
 Two numerics, compared like with like:
 
@@ -154,9 +154,12 @@ def test_remat_gives_the_same_gradients(test_spec):
     for a, b in zip(interop.tree_leaves(plain[2]),
                     interop.tree_leaves(remat[2])):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        PT.loss_fn(pcfg, p, lo, batch,
-                   remat="dots_with_no_batch_dims_saveable")
+    named = PT.loss_and_lora_grads(
+        pcfg, p, lo, batch, remat="dots_with_no_batch_dims_saveable")
+    assert torch.equal(plain[0], named[0])
+    for a, b in zip(interop.tree_leaves(plain[2]),
+                    interop.tree_leaves(named[2])):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
