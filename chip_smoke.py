@@ -13,7 +13,9 @@ federated methods through a sweep, the train->serve hand-off (a FedSA
 round exported, checkpointed and served) and DevFT's training entry
 point (granite-moe-1b-a400m, mamba2-2.7b, jamba-v0.1-52b,
 deepseek-v3-671b and qwen2-vl-7b, four stages each, then each run's
-global adapter served; whisper-tiny's submodels) through the port's own
+global adapter served; whisper-tiny's submodels; granite's run again on
+the 1x1 device mesh, and its train step on each MoE path, the
+expert-parallel one included) through the port's own
 entry points at full width with random weights (jamba's and deepseek's
 depth cut), and checks card-vs-CPU parity at reduced sizes. Phases, in
 order:
@@ -58,7 +60,8 @@ order:
    d7168 ff2048 with the fill (one 128-row tile holds an expert's 8
    rows); at the DevFT training shapes of jamba and deepseek:
    ``moe_expert_ffn`` E16 C640 d4096 ff14336 and E256 C160 d7168 ff2048
-   (the f32-inside version built 16 experts at a time), ``lora_matmul``
+   (the f32-inside version built 16 experts at a time) and at the ep
+   path's E32 C2048 d1024 ff512 with the fill, ``lora_matmul``
    on jamba's in_proj, out_proj and W_v and deepseek's W_q_b and W_kv_b,
    ``flash_attention`` at jamba's B4 S1024 H32/8 D128 and ``ssd_scan``
    at jamba's B4 S1024 H128 P64 N16; at the frontend orders' shapes:
@@ -211,6 +214,22 @@ order:
    (``registry_from_run(..., personalize=False)``, bit-equal to the
    final LoRA) is served on the run's base params, 4 requests of 16 + 8
    tokens, with the serve phase's launch checks.
+15. mesh, after the DevFT phases: the 1x1 host mesh on the card
+   (``make_host_mesh``: a world-1 ``nccl`` group, destroyed at the end);
+   granite-moe-1b-a400m's DevFT run of phase 10 again through
+   ``run_experiment(spec.replace(mesh="host"))`` (params placed as
+   DTensors, gathered layer by layer): RoundLog integers equal, floats
+   and the final LoRA bit-equal to the ``mesh=None`` run (held within
+   1e-2 only if a second ``mesh=None`` run is not bit-equal either), the
+   same launches; then one ``make_train_step`` step of 4 x 1024 tokens on
+   each MoE path on the mesh, with remat: exact launches (each kernel
+   twice a layer), every ``moe_expert_ffn`` shape held by a kernel-phase
+   case (``MESH_MOE``: ep's local capacity 2048 is ``MOE_EP``),
+   ``gather_sharded`` bit-equal to ``gather``, ``ep`` and ``gather``
+   through the kernels against their plain paths on the card (loss
+   1e-2; ep's gradients within ``MESH_GRAD_RATIO`` times gather's own
+   difference, at most ``MESH_GRAD_TOL`` of their norms), step times and
+   peak memory.
 
 Every phase raises on failure, so the script exits non-zero; it also
 exits non-zero, printing no result, without a CUDA card or without the
@@ -1685,6 +1704,10 @@ MOE_DECODE_DEEPSEEK = "deepseek decode E256 C8 d7168 ff2048 bf16"
 #: of 256, capacity 160)
 MOE_JAMBA = "jamba train E16 C640 d4096 ff14336 bf16"
 MOE_DEEPSEEK = "deepseek train E256 C160 d7168 ff2048 bf16"
+#: moe_block_ep's buffers in granite-moe-1b-a400m's training step on the
+#: 1x1 mesh (4 x 1024 tokens, top 8 of 32): the local capacity
+#: max(8, ceil(4096 * 8 / 32) * 2) = 2048, with the fill
+MOE_EP = "ep E32 C2048 d1024 ff512 bf16"
 #: every moe_expert_ffn shape a serving phase launches, bf16: (experts,
 #: capacity, d, ff) -> the kernel phase's case that holds it
 SERVED_MOE = {(32, 8, 1024, 512): MOE_DECODE_GRANITE,
@@ -1739,6 +1762,7 @@ def moe_phase(moe_expert_ffn_ecd, moe_expert_ffn_ref, seed: int = 0):
         (MOE_DECODE_GRANITE, 32, 8, 1024, 512, bf16, True, "wgmma"),
         (MOE_DECODE_JAMBA, 16, 8, 4096, 14336, bf16, True, "wgmma"),
         (MOE_DECODE_DEEPSEEK, 256, 8, 7168, 2048, bf16, True, "wgmma"),
+        (MOE_EP, 32, 2048, 1024, 512, bf16, True, "wgmma"),
         (MOE_JAMBA, 16, 640, 4096, 14336, bf16, False, "wgmma"),
         # 22.5 GB of expert weights: the f32-inside version is built
         # 16 experts at a time
@@ -3211,6 +3235,266 @@ def handoff_phase(seed: int = 0):
     _reset_all_counts()
 
 
+#: every moe_expert_ffn shape (E, C, d, ff) the mesh phase's train steps
+#: launch -> the kernel phase's case that holds it: the gather paths'
+#: capacity 1280, ep's local capacity 2048
+MESH_MOE = {(32, 1280, 1024, 512): MOE_PATH, (32, 2048, 1024, 512): MOE_EP}
+MESH_STEPS = 3              # timed make_train_step steps after the first
+#: the ep step's LoRA gradients through the kernels against the plain
+#: path on the card: both run the same plain backward and differ by the
+#: forward's bf16 roundings, which grow with depth (5.5% of a leaf's norm
+#: over qwen2-vl's 28 layers, ``_kernels_vs_plain``; 7.3% at the median
+#: and 9.5% at most over granite's 24 on the ep path, on an H100 80GB
+#: HBM3 at 700 W, where the gather path's was 7.6% and 9.8%). So
+#: ep's difference is held against the gather path's own on the same
+#: step, the same roundings but for the expert buffers': at most
+#: MESH_GRAD_RATIO times it, and never over MESH_GRAD_TOL of a norm. A
+#: wrong expert offset, drop or combine differs by the whole norm. The
+#: loss at the train parity phase's 1e-2 relative.
+MESH_GRAD_RATIO = 1.5
+MESH_GRAD_TOL = 0.25
+ROUNDLOG_INTS = ("round", "stage", "capacity", "comm_bytes_up",
+                 "comm_bytes_down", "memory_bytes", "n_dropped")
+ROUNDLOG_FLOATS = ("eval_loss", "eval_acc", "flops", "sim_time_s")
+
+
+def _same_run(a_logs, a_lora, b_logs, b_lora):
+    """Whether two runs' RoundLog floats and final LoRA are the same
+    bits (their integer fields are held apart)."""
+    return all(getattr(a, f) == getattr(b, f) for a, b in zip(a_logs, b_logs)
+               for f in ROUNDLOG_FLOATS) and all(
+        torch.equal(x, y) for x, y in zip(_leaves(a_lora), _leaves(b_lora)))
+
+
+def mesh_phase(none_run, seed: int = 0):
+    """The multi-device slice on the card's only mesh, 1x1
+    (``make_host_mesh`` on cuda: a world-1 ``nccl`` group): DevFT on
+    full-width granite-moe-1b-a400m through ``run_experiment(spec.replace
+    (mesh="host"))``, the spec the DevFT phase ran with ``mesh=None``,
+    held against that run (``none_run``: spec, logs, final LoRA and base
+    params on the host, launches): RoundLog integers exactly, floats and
+    the final LoRA bit for bit, the same launches; then one
+    ``make_train_step`` step of 4 x 1024 tokens on each MoE path
+    (``gather``, ``gather_sharded``, ``ep``) on the mesh: launches,
+    ``moe_expert_ffn``'s shapes (each held by a kernel-phase case),
+    ``gather_sharded`` bit-equal to ``gather``, ``ep`` and ``gather``
+    through the kernels against their plain paths, step times and peak
+    memory. Returns the launches by run."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.experiments import run_experiment
+    from repro_torch.interop import tree_map
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as Moe
+    from repro_torch.optim.adamw import init_adamw
+
+    spec, logs_none, lora_none, base, cfg, launches_none = none_run
+    tag = "mesh"
+    smi = nvidia_smi("name,power.limit")
+    mesh = make_host_mesh("cuda")
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+              and tuple(mesh.shape) == (1, 1)
+              and mesh.mesh_dim_names == ("data", "model")
+              and mesh.device_type == "cuda",
+              f"{tag}: host mesh {mesh} on {dist.get_backend()}, world "
+              f"{dist.get_world_size()}")
+        print(f"[{tag}] host mesh {tuple(mesh.shape)} over "
+              f"{mesh.mesh_dim_names} on a world-1 {dist.get_backend()} "
+              f"group")
+        kernels = _path_kernels()
+        _reset_all_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        on = run_experiment(spec.replace(mesh="host"), device="cuda",
+                            dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        check(launches == launches_none, f"{tag}: devft launches {launches}"
+              f", mesh=None {launches_none}")
+        check(all(launches[n] for n in ("lora_matmul_fused",
+                                        "flash_attention_bshd",
+                                        "moe_expert_ffn_ecd")),
+              f"{tag}: a kernel of the path did not launch: {launches}")
+        _check_lora_variants(kernels[1], tag)
+        _check_flash_variant(kernels[2], tag)
+        _check_moe_variant(kernels[3], tag)
+        check(len(on.logs) == len(logs_none) == 4,
+              f"{tag}: {len(on.logs)} rounds")
+        for a, b in zip(on.logs, logs_none):
+            for f in ROUNDLOG_INTS:
+                check(getattr(a, f) == getattr(b, f), f"{tag}: round "
+                      f"{a.round} {f} {getattr(a, f)} vs {getattr(b, f)}")
+        lora_on = tree_map(lambda t: t.cpu(), on.final_lora)
+        if _same_run(on.logs, lora_on, logs_none, lora_none):
+            held = "bit-equal to mesh=None (floats and final LoRA)"
+        else:
+            # a second mesh=None run says whether the card gives the same
+            # bits twice; only if it does not are the floats held within
+            # the train parity phase's limits
+            again = run_experiment(spec, device="cuda", dtype=torch.bfloat16)
+            lora_again = tree_map(lambda t: t.cpu(), again.final_lora)
+            check(not _same_run(again.logs, lora_again, logs_none,
+                                lora_none),
+                  f"{tag}: two mesh=None runs are bit-equal but the mesh "
+                  f"run is not")
+            for a, b in zip(on.logs, logs_none):
+                for f in ROUNDLOG_FLOATS:
+                    x, y = getattr(a, f), getattr(b, f)
+                    check(abs(x - y) <= 1e-2 * abs(y) + 1e-3,
+                          f"{tag}: round {a.round} {f} {x} vs {y}")
+            lim = 2 * spec.lr * spec.rounds * spec.k_local
+            for x, y in zip(_leaves(lora_on), _leaves(lora_none)):
+                check(float((x - y).abs().max()) <= lim,
+                      f"{tag}: final LoRA beyond {lim}")
+            held = ("NOT bit-equal, and two mesh=None runs are not either: "
+                    "floats within 1e-2 relative + 1e-3, final LoRA within "
+                    f"{lim:.3g}")
+        print(f"[{tag}] devft granite-moe-1b-a400m on the 1x1 mesh (full "
+              f"width, bf16 params placed as DTensors, the DevFT phase's "
+              f"spec) on {smi}: wall {wall:.1f} s, peak "
+              f"{peak / 2**30:.2f} GiB; "
+              f"launches {launches} (= mesh=None's); RoundLog integers "
+              f"equal, {held}; eval losses "
+              f"{[round(log.eval_loss, 5) for log in on.logs]}")
+        del on, lora_on
+        out = {"devft granite-moe-1b-a400m on the 1x1 mesh": launches}
+
+        # one train step on each MoE path
+        params = tree_map(lambda t: t.cuda(), base)
+        lora = tree_map(lambda t: t.cuda(), lora_none)
+        opt = init_adamw(lora)
+        rng = np.random.default_rng(np.random.SeedSequence((seed, 26)))
+        b, s = spec.local_batch, spec.seq
+        batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (b, s),
+                                                  dtype=np.int32)).cuda()
+                 for k in ("tokens", "labels")}
+        shapes, grads_seen = [], []
+        ffn, adamw = Moe.ops.moe_expert_ffn, steps.adamw_update
+
+        def recording_ffn(buf, wg, wu, wd, **kw):
+            shapes.append((*buf.shape, wg.shape[2]))
+            return ffn(buf, wg, wu, wd, **kw)
+
+        def recording_adamw(grads, *a, **kw):
+            grads_seen.append(grads)
+            return adamw(grads, *a, **kw)
+
+        n = cfg.n_layers
+        want = {"flash_decode_bhrd": 0, "lora_matmul_fused": 2 * 2 * n,
+                "flash_attention_bshd": 2 * n, "moe_expert_ffn_ecd": 2 * n,
+                "ssd_scan_bshp": 0}
+        res = {}
+        with _patched((Moe.ops, "moe_expert_ffn", recording_ffn),
+                      (steps, "adamw_update", recording_adamw)):
+            for path in ("gather", "gather_sharded", "ep"):
+                step = steps.make_train_step(cfg, moe_path=path, mesh=mesh)
+                _reset_all_counts()
+                shapes.clear()
+                grads_seen.clear()
+                new_lora, _, metrics = step(params, lora, opt, batch, spec.lr)
+                torch.cuda.synchronize()
+                got = {fn.__name__: fn.launches for fn in kernels}
+                # remat (the step's default) runs each layer's forward
+                # again in the backward: each kernel twice a layer
+                check(got == want, f"{tag} {path}: launches {got}, want "
+                      f"{want} (once per layer per forward, two forwards)")
+                _check_lora_variants(kernels[1], f"{tag} {path}")
+                _check_flash_variant(kernels[2], f"{tag} {path}")
+                _check_moe_variant(kernels[3], f"{tag} {path}")
+                held = sorted({MESH_MOE.get(tuple(sh), "none")
+                               for sh in shapes})
+                check("none" not in held and len(shapes) == 2 * n,
+                      f"{tag} {path}: moe_expert_ffn shapes {set(shapes)}: "
+                      f"no kernel-phase case holds one")
+                times = []
+                torch.cuda.reset_peak_memory_stats()
+                for _ in range(MESH_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step(params, lora, opt, batch, spec.lr)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                res[path] = dict(loss=metrics["loss"], grads=grads_seen[0],
+                                 new_lora=new_lora, launches=got,
+                                 ms=1e3 * float(np.median(times)),
+                                 times=times, held=held,
+                                 peak=torch.cuda.max_memory_allocated())
+            check(torch.equal(res["gather_sharded"]["loss"],
+                              res["gather"]["loss"])
+                  and all(torch.equal(x, y) for x, y in zip(
+                      _leaves((res["gather_sharded"]["grads"],
+                               res["gather_sharded"]["new_lora"])),
+                      _leaves((res["gather"]["grads"],
+                               res["gather"]["new_lora"])))),
+                  f"{tag}: the gather_sharded step differs from gather")
+            # ep and gather through the kernels against their plain paths
+            # on the card
+            plain_cfg = dataclasses.replace(cfg, kernel_backend="reference")
+            for path in ("ep", "gather"):
+                step = steps.make_train_step(plain_cfg, moe_path=path,
+                                             mesh=mesh)
+                _reset_all_counts()
+                grads_seen.clear()
+                _, _, m_plain = step(params, lora, opt, batch, spec.lr)
+                torch.cuda.synchronize()
+                got = {fn.__name__: fn.launches for fn in kernels}
+                check(not any(got.values()), f"{tag}: the plain {path} step "
+                      f"launched {got}")
+                r = res[path]
+                r["plain_loss"] = float(m_plain["loss"])
+                r["rel"] = abs(float(r["loss"]) - r["plain_loss"]) \
+                    / abs(r["plain_loss"])
+                r["diffs"] = [float((x - y).norm() / y.norm()) for x, y in
+                              zip(_leaves(r["grads"]),
+                                  _leaves(grads_seen[0]))]
+                check(r["rel"] <= 1e-2, f"{tag} {path}: loss through the "
+                      f"kernels {float(r['loss'])} vs plain "
+                      f"{r['plain_loss']} (rel {r['rel']})")
+                check(all(np.isfinite(r["diffs"])),
+                      f"{tag} {path}: gradients not finite")
+            del m_plain
+        ep, gather = res["ep"], res["gather"]
+        lim = min(MESH_GRAD_TOL, MESH_GRAD_RATIO * max(gather["diffs"]))
+        check(max(ep["diffs"]) <= lim,
+              f"{tag} ep: LoRA gradients differ from the plain path by "
+              f"{ep['diffs']} of their norms (limit {lim:.3g}: "
+              f"{MESH_GRAD_RATIO} x gather's {max(gather['diffs']):.3g}, at "
+              f"most {MESH_GRAD_TOL})")
+        for path, r in res.items():
+            print(f"[{tag}] {path} train step on the 1x1 mesh (full-width "
+                  f"granite, 4 x 1024 tokens, remat): loss "
+                  f"{float(r['loss']):.5f}; launches {r['launches']}; "
+                  f"moe_expert_ffn shapes held by {r['held']}; "
+                  f"{r['ms']:.1f} ms per step (median of {MESH_STEPS}: "
+                  f"{', '.join(f'{1e3 * t:.1f}' for t in r['times'])}), "
+                  f"peak {r['peak'] / 2**30:.2f} GiB on {smi}")
+        print(f"[{tag}] gather_sharded step bit-equal to gather (loss, LoRA "
+              f"gradients, AdamW update)")
+        for path, r in (("ep", ep), ("gather", gather)):
+            print(f"[{tag}] {path} through the kernels vs its plain path on "
+                  f"{smi}: loss {float(r['loss']):.5f} vs "
+                  f"{r['plain_loss']:.5f} (rel {r['rel']:.3g}, tol 1e-2), "
+                  f"LoRA gradients differ by {np.median(r['diffs']):.3g} of "
+                  f"their norms at the median, {max(r['diffs']):.3g} at most")
+        print(f"[{tag}] ep's gradient difference held at {lim:.3g} "
+              f"({MESH_GRAD_RATIO} x gather's, at most {MESH_GRAD_TOL}); ep "
+              f"vs gather loss {float(ep['loss']):.5f} vs "
+              f"{float(gather['loss']):.5f} (ep's local capacity 2048 "
+              f"against gather's 1280)")
+        out["granite ep train step on the 1x1 mesh"] = ep["launches"]
+        del res, ep, gather, params, lora, opt
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
 #: the DevFT phases, in order: (arch, stage capacities, launches per layer
 #: per forward by block kind, layer-forwards in all, the depth trained
 #: (None: the config's), the served global adapter's launches per engine
@@ -3308,8 +3592,17 @@ def main() -> int:
         if cfg.frontend == "vision":
             path_steps[f"{arch} vision-prefix train step"] = \
                 vision_prefix_phase(base, cfg, result.final_lora)
+        if arch == "granite-moe-1b-a400m":     # the mesh phase's reference
+            from repro_torch.interop import tree_map
+            granite_run = (result.spec, result.logs,
+                           tree_map(lambda t: t.cpu(), result.final_lora),
+                           tree_map(lambda t: t.cpu(), base), cfg,
+                           devft_launches[arch])
         del result, base
         torch.cuda.empty_cache()
+    path_steps.update(mesh_phase(granite_run))
+    del granite_run
+    torch.cuda.empty_cache()
 
     def cases(rows_, names, yardstick="library_ms"):
         """The new path shapes' numbers for the kernels line."""
@@ -3358,7 +3651,7 @@ def main() -> int:
              serve_launches={a: n[1] for a, n in serve_launches.items()
                              if n[1]},
              path_launches=path_launches("moe_expert_ffn_ecd"),
-             cases=cases(moe_rows, (MOE_JAMBA, MOE_DEEPSEEK,
+             cases=cases(moe_rows, (MOE_EP, MOE_JAMBA, MOE_DEEPSEEK,
                                     MOE_DECODE_DEEPSEEK), "bmm_ms")),
         dict(name="ssd_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",

@@ -23,6 +23,7 @@ from repro_torch.experiments.results import RunResult, summarize
 from repro_torch.experiments.spec import ExperimentSpec
 from repro_torch.federated.simulator import FederatedRunner
 from repro_torch.interop import tree_map
+from repro_torch.launch.mesh import resolve_mesh
 
 _BASE_CACHE: Dict[tuple, Tuple] = {}
 
@@ -70,8 +71,10 @@ def run_experiment(spec: ExperimentSpec, *,
                    data=None, params=None, lora=None,
                    export_adapters: bool = False, device="cuda",
                    dtype=torch.float32) -> RunResult:
-    """Run one spec end-to-end on ``device``. ``round_progress(RoundLog)``
-    fires after every round. ``data``/``params``/``lora`` are escape
+    """Run one spec end-to-end on ``device``, on the mesh ``spec.mesh``
+    names (``launch.mesh.resolve_mesh``: "host" starts a world-1 process
+    group when none exists). ``round_progress(RoundLog)`` fires after
+    every round. ``data``/``params``/``lora`` are escape
     hatches for callers that already hold them (tests hand in the JAX
     package's, through ``repro_torch.interop``); by default all derive
     from the spec. ``dtype`` is the params' dtype when they are
@@ -82,10 +85,6 @@ def run_experiment(spec: ExperimentSpec, *,
     ``adapter_registry`` holds the aggregated global adapter plus one
     personalized adapter per client (a few local steps on each client's
     own data), ready to pass to ``repro_torch.serving.ServingEngine``."""
-    if spec.mesh not in (None, "none"):
-        raise NotImplementedError(
-            f"mesh={spec.mesh!r}: the port's round engine runs on one "
-            f"device (ROADMAP.md, tooling)")
     cfg = spec.build_cfg()
     pretrain_loss = None
     if params is None and spec.pretrain_steps:
@@ -96,7 +95,8 @@ def run_experiment(spec: ExperimentSpec, *,
                                    alpha=spec.alpha, noise=spec.noise,
                                    seed=spec.seed)
     runner = FederatedRunner(cfg, spec.fed_config(), data, dtype=dtype,
-                             params=params, lora=lora, device=device)
+                             params=params, lora=lora, device=device,
+                             mesh=resolve_mesh(spec.mesh, device))
     t0 = time.time()
     logs = runner.run(round_progress)
     wall = time.time() - t0

@@ -13,10 +13,9 @@ A spec composes everything needed to reproduce an experiment:
 * **federated** — every knob in :class:`repro_torch.federated.FedConfig`,
   field-for-field (including ``lr_stage_factor`` and ``flora_ranks``,
   which no CLI exposed before);
-* **execution** — ``mesh`` (``None``/"none", "host" or "production";
-  the port runs on one device and its runner raises for a mesh).
-  Trajectories are mesh-independent, so this knob is excluded from
-  ``base_key()``;
+* **execution** — ``mesh`` (``None``/"none", "host" or "production",
+  ``launch.mesh.resolve_mesh``). Trajectories are mesh-independent, so
+  this knob is excluded from ``base_key()``;
 * **budget / pretrain** — ``pretrain_steps`` + ``homogeneous_init``
   (the structured-base protocol of DESIGN.md §7).
 

@@ -22,7 +22,8 @@ def _keep(keep: torch.Tensor, new, old):
     return tree_map(lambda n, o: torch.where(keep, n, o), new, old)
 
 
-def make_local_train(cfg, *, remat: bool | str = False, window=None):
+def make_local_train(cfg, *, remat: bool | str = False, window=None,
+                     moe_path: str = "gather", mesh=None):
     """Returns local_train(params, lora, batches, lr, step_mask=None)
     -> (lora', metrics).
 
@@ -35,6 +36,7 @@ def make_local_train(cfg, *, remat: bool | str = False, window=None):
 
     metrics: ``loss_first`` / ``loss_last`` (the losses of steps 0 and
     K-1, masked or not) and ``n_examples`` (label tokens trained on).
+    ``moe_path`` and ``mesh`` go to the model (``transformer.loss_fn``).
     (The JAX package's ``lr_is_input`` flag, which it never reads, is
     not carried over.)
     """
@@ -50,7 +52,8 @@ def make_local_train(cfg, *, remat: bool | str = False, window=None):
         for t in range(k_steps):
             batch = {k: v[t] for k, v in batches.items()}
             _total, metrics, grads = loss_and_lora_grads(
-                cfg, params, lora, batch, window=window, remat=remat)
+                cfg, params, lora, batch, window=window, remat=remat,
+                moe_path=moe_path, mesh=mesh)
             new_lora, new_opt = adamw_update(grads, opt, lora, lr,
                                              weight_decay=0.0)
             if mask is not None:

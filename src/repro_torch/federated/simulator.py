@@ -1,5 +1,5 @@
 """Federated fine-tuning simulator — the method-agnostic round engine
-(the JAX package's ``repro.federated.simulator``), eager on one device.
+(the JAX package's ``repro.federated.simulator``), eager.
 
 Reproduces the paper's experimental protocol (App. B): N=20 devices,
 10% sampled per round, K=10 local steps, LoRA rank 32 on W_q/W_v,
@@ -8,9 +8,21 @@ clients inside one jitted round program, this engine runs them one
 after another through ``client.make_local_train`` (the fused
 ``lora_matmul`` kernel is single-adapter, and the loop keeps peak memory
 at one client's), stacks their adapters on a leading client axis, and
-hands the stack to the strategy's aggregation. There is no jit cache,
-no sharding, no buffer donation and no mesh: ``mesh`` other than
-``None`` raises (ROADMAP.md).
+hands the stack to the strategy's aggregation. There is no jit cache
+and no buffer donation.
+
+Mesh execution: pass ``mesh=`` (a ``DeviceMesh``, ``launch.mesh``) and
+every rank runs the engine. The round's frozen params are placed by the
+FSDP×TP ``params_shardings`` rules (DTensors, gathered layer by layer in
+the model), each rank trains its shard of the sampled clients (the
+client axis over ``pod``+``data``, ``batch_shardings``) from the global
+LoRA's gathered view, the client LoRA stacks are all-gathered over those
+axes so every rank aggregates the whole stack in client order, and the
+aggregated tree is placed by ``params_shardings``; the strategy's hooks
+and eval see its gathered view. The clients and the aggregation run the
+same arithmetic as with ``mesh=None``, so the logs and adapters are the
+same bits. The JAX package donates the round's LoRA buffers on mesh
+runs; torch has no donation, so nothing is copied for it either.
 
 Everything method-specific — submodel construction, schedules, LR
 ramps, aggregation, server-side adapter transforms — lives behind the
@@ -48,6 +60,7 @@ import dataclasses
 from typing import Callable, Dict, List, Optional
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.data.synthetic import (
     FederatedData,
@@ -64,6 +77,7 @@ from repro_torch.federated.heterogeneity import (
 )
 from repro_torch.federated.methods import LocalSpec, make_strategy
 from repro_torch.interop import tree_leaves, tree_map
+from repro_torch.launch import sharding as shd
 from repro_torch.models import transformer as T
 
 
@@ -113,7 +127,7 @@ class RoundLog:
     n_dropped: int = 0        # stragglers zero-weighted this round
 
 
-def make_round_program(strategy, run_state, sub_cfg, n_sample):
+def make_round_program(strategy, run_state, sub_cfg, n_sample, mesh=None):
     """The round program: K-step local training for each sampled client
     (in turn), then the strategy's server aggregation. Returns
     ``(round_fn, aux)``; ``round_fn(params, lora, batches, lr,
@@ -123,24 +137,45 @@ def make_round_program(strategy, run_state, sub_cfg, n_sample):
     Heterogeneous rounds pass per-client step masks ``(C, K)`` for
     ragged local work and the per-client aggregation-weight vector
     ``(C,)``; the uniform round passes neither.
+
+    On a ``mesh``, ``params`` and ``lora`` may be placed (DTensors) and
+    ``batches`` and ``masks`` are this rank's shard of the client axis
+    (``client_spec``); the clients train from the LoRA's gathered view,
+    their stack is gathered whole before the aggregation, and the
+    aggregated tree comes back placed by ``params_shardings``.
     """
     local = make_local_train(sub_cfg)
     aux: Dict = {}
 
     def round_fn(params, lora, batches, lr, masks=None, weights=None):
+        view = lora if mesh is None else shd.gathered(lora)
         loras = []
         for c in range(len(batches["labels"])):
-            new, _ = local(params, lora, {k: v[c] for k, v in
+            new, _ = local(params, view, {k: v[c] for k, v in
                                           batches.items()}, lr,
                            None if masks is None else masks[c])
             loras.append(new)
         stacked = tree_map(lambda *xs: torch.stack(xs), *loras)
+        if mesh is not None:
+            spec = client_spec(mesh, n_sample)
+            stacked = tree_map(lambda t: shd.gather_part(mesh, spec, t),
+                               stacked)
         new_lora, aux["up"] = strategy.aggregate(
-            run_state, LocalSpec(sub_cfg, params, lora), stacked, n_sample,
+            run_state, LocalSpec(sub_cfg, params, view), stacked, n_sample,
             weights=weights)
+        if mesh is not None:
+            new_lora = shd.place(new_lora,
+                                 shd.params_shardings(mesh, new_lora))
         return new_lora
 
     return round_fn, aux
+
+
+def client_spec(mesh, n_sample: int) -> tuple:
+    """The spec of a leading sampled-client axis of ``n_sample`` clients
+    (``batch_shardings``: over as much of pod+data as divides it)."""
+    return shd.batch_shardings(
+        mesh, torch.empty((n_sample,), device="meta")).spec
 
 
 def count_params(tree) -> int:
@@ -176,16 +211,14 @@ class FederatedRunner:
     ``fed.seed`` (a ``torch.Generator`` on ``device``, params in
     ``dtype``, LoRA in f32); passing them (e.g. the JAX package's,
     through ``repro_torch.interop``) runs from the given trees, on their
-    device.
+    device. ``mesh`` (a ``DeviceMesh`` of that device's kind) places each
+    round on it (see the module docstring); every rank of its group runs
+    the same runner with the same arguments.
     """
 
     def __init__(self, cfg, fed: FedConfig, data: FederatedData, *,
                  dtype=torch.float32, params=None, lora=None, mesh=None,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the port's round engine runs on one device; mesh "
-                "execution is not ported (ROADMAP.md, tooling)")
         self.cfg = cfg
         self.fed = fed
         self.data = data
@@ -226,6 +259,14 @@ class FederatedRunner:
         self.rng = keyed_rng(fed.seed, "cohort")
         self._n_sample = max(1, int(fed.n_clients * fed.sample_frac))
         self.device = tree_leaves(self.params)[0].device
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh={mesh!r}: pass a DeviceMesh "
+                            f"(launch.mesh.resolve_mesh names them)")
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot run "
+                             f"params on {self.device}")
+        self.mesh = mesh
+        self._placed = (None, None)      # (params, their placed copy)
 
     def _eval(self, cfg, params, lora, batch):
         with torch.no_grad():
@@ -235,6 +276,28 @@ class FederatedRunner:
     def _to_device(self, batches):
         return {k: torch.as_tensor(v).to(self.device)
                 for k, v in batches.items()}
+
+    # ---- mesh placement -------------------------------------------------
+    def _place_model(self, spec):
+        """The round's (params, lora) on the mesh, by the FSDP×TP rules;
+        a stage's params are placed once and kept while the strategy
+        hands out the same tree. As they are without a mesh."""
+        if self.mesh is None:
+            return spec.params, spec.lora
+        if self._placed[0] is not spec.params:
+            self._placed = (spec.params, shd.place(
+                spec.params, shd.params_shardings(self.mesh, spec.params)))
+        return self._placed[1], shd.place(
+            spec.lora, shd.params_shardings(self.mesh, spec.lora))
+
+    def _local_clients(self, tree):
+        """This rank's shard of a tree with a leading sampled-client axis
+        (the whole tree without a mesh)."""
+        if self.mesh is None:
+            return tree
+        spec = client_spec(self.mesh, self._n_sample)
+        return tree_map(lambda t: shd.local_part(
+            self.mesh, spec + (None,) * (t.dim() - 1), t), tree)
 
     # ---- host-side round prep -------------------------------------------
     def _host_batches(self, rnd: int):
@@ -302,17 +365,20 @@ class FederatedRunner:
 
             # ---- local training + aggregation ----
             lr = strat.client_lr(stage)
-            dev_batches = self._to_device(batches)
+            dev_batches = self._local_clients(self._to_device(batches))
+            params_p, lora_p = self._place_model(spec)
             round_fn, aux = make_round_program(strat, state, spec.cfg,
-                                               n_sample)
-            new_lora = round_fn(spec.params, spec.lora, dev_batches, lr,
-                                *((plan.step_mask, plan.weights)
-                                  if self._hetero else ()))
+                                               n_sample, self.mesh)
+            hetero = (self._local_clients(torch.as_tensor(plan.step_mask)),
+                      plan.weights) if self._hetero else ()
+            new_lora = round_fn(params_p, lora_p, dev_batches, lr, *hetero)
+            if self.mesh is not None:
+                new_lora = shd.gathered(new_lora)
             new_lora = strat.post_round(state, new_lora)
 
             # ---- eval (every eval_every rounds; last round always) ----
             if rnd % fed.eval_every == 0 or rnd == n_rounds - 1:
-                ev_loss, ev_acc = self._eval(spec.cfg, spec.params,
+                ev_loss, ev_acc = self._eval(spec.cfg, params_p,
                                              new_lora, eval_batch)
 
             n_kept = int(plan.kept.sum())

@@ -53,12 +53,26 @@ leaf makes a zero gradient the size of the whole stack, so the corrected
 bytes fall short at depth, and ``bytes_per_device`` is the full-depth
 count.
 
-The multi-device paths (``--multi-pod``, ``--moe-path ep`` or
-``gather_sharded``) wait for the port's multi-device slice and raise.
+``--moe-path ep`` or ``gather_sharded`` builds the step on a 1x1 mesh
+(``launch.mesh.make_host_mesh`` on the CPU: a world-1 ``gloo`` group,
+which the meta tensors never reach, since a collective over one rank is
+skipped) and counts it as the card runs it: ``ep``'s local capacity
+(``moe_block_ep``'s ``cap_l``) sets its expert FLOPs, and
+``gather_sharded`` counts what ``gather`` counts.
+
+``--multi-pod`` adds ``per_device_argument_bytes``: for each input tree
+(params, LoRA, optimizer state, batch, cache) the bytes of one device's
+shards on the (2, 16, 16) mesh over ("pod", "data", "model"), by the
+placement rules (``launch.sharding``); the other counts stay one card's.
+The JAX package's dry-run also reads the compiled program's per-device
+temp bytes and collective bytes off XLA's partitioned HLO; with no
+partitioner in the port there is nothing to read them from, so they are
+not counted.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun \\
         --arch llama2-7b-proxy --shape train_4k [--remat <policy>] \\
-        [--layers N] [--k-local K] [--out-dir experiments/dryrun_torch]
+        [--layers N] [--k-local K] [--moe-path ep] [--multi-pod] \\
+        [--out-dir experiments/dryrun_torch]
 """
 from __future__ import annotations
 
@@ -84,7 +98,9 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.common import (H100_BF16_FLOPS, H100_F32_FLOPS,
                                         H100_HBM_BYTES,
                                         H100_HBM_BYTES_PER_S)
+from repro_torch.launch import sharding as shd
 from repro_torch.launch import specs as S
+from repro_torch.launch.mesh import abstract_production_mesh, make_host_mesh
 from repro_torch.launch.steps import (make_federated_round_step,
                                       make_prefill_step, make_serve_step,
                                       make_train_step)
@@ -100,8 +116,6 @@ _NO_BYTES = {_aten.empty, _aten.empty_strided, _aten.empty_like,
 _SCATTERS = {_aten.index_put_, _aten._index_put_impl_, _aten.index_copy_,
              _aten.index_add_, _aten.scatter_, _aten.scatter_add_,
              _aten.masked_scatter_}
-_MULTI_DEVICE = ("the multi-device slice of the port (ROADMAP queue 1): "
-                 "the one-card dry-run has no mesh")
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -294,17 +308,11 @@ def with_depths(cfg, depths: dict):
     return dataclasses.replace(cfg, n_layers=depths.get("layers", 1))
 
 
-def _check_one_device(multi_pod: bool, moe_path: str) -> None:
-    if multi_pod:
-        raise NotImplementedError(f"--multi-pod needs {_MULTI_DEVICE}")
-    if moe_path != "gather":
-        raise NotImplementedError(f"--moe-path {moe_path} needs "
-                                  f"{_MULTI_DEVICE}")
-
-
 def build_cfg(cfg, shape, *, k_local=0, rank=32, remat=True,
-              aggregation="fedavg", hetero=False):
-    """(step fn, meta args) of ``cfg`` at ``shape``."""
+              aggregation="fedavg", hetero=False, moe_path="gather",
+              mesh=None):
+    """(step fn, meta args) of ``cfg`` at ``shape``, the MoE blocks on
+    ``moe_path`` over ``mesh``."""
     if hetero and not k_local:
         raise ValueError("hetero=True runs the heterogeneous federated "
                          "round step and therefore requires k_local > 0")
@@ -324,6 +332,7 @@ def build_cfg(cfg, shape, *, k_local=0, rank=32, remat=True,
             aggregation, SimpleNamespace(flora_ranks=None, lora_rank=rank),
             n_clients)
         fn = make_federated_round_step(cfg, k_local=k_local, window=window,
+                                       moe_path=moe_path, mesh=mesh,
                                        remat=remat, aggregation=aggregation,
                                        agg_kwargs=agg_kw, hetero=hetero)
         args = (p_specs, l_specs, cb, lr)
@@ -332,27 +341,29 @@ def build_cfg(cfg, shape, *, k_local=0, rank=32, remat=True,
                      torch.empty((n_clients,), device=S.META))
         return fn, args
     if shape.kind == "train":
-        fn = make_train_step(cfg, window=window, remat=remat)
+        fn = make_train_step(cfg, window=window, moe_path=moe_path,
+                             mesh=mesh, remat=remat)
         args = (p_specs, l_specs, S.opt_specs(l_specs),
                 S.batch_specs(cfg, shape, with_labels=True), lr)
     elif shape.kind == "prefill":
-        fn = make_prefill_step(cfg, window=window)
+        fn = make_prefill_step(cfg, window=window, moe_path=moe_path,
+                               mesh=mesh)
         args = (p_specs, l_specs, S.batch_specs(cfg, shape,
                                                 with_labels=False))
     else:
-        fn = make_serve_step(cfg)
+        fn = make_serve_step(cfg, moe_path=moe_path, mesh=mesh)
         args = (p_specs, l_specs, S.token_specs(shape),
                 S.cache_specs(cfg, shape))
     return fn, args
 
 
-def build(arch: str, shape_name: str, multi_pod: bool = False, *,
-          moe_path: str = "gather", k_local: int = 0, rank: int = 32,
-          remat=True, layers: int = 0, aggregation: str = "fedavg",
-          hetero: bool = False):
-    """(cfg, shape, step fn, meta args) of ``arch`` at the input shape
-    ``shape_name``."""
-    _check_one_device(multi_pod, moe_path)
+def build(arch: str, shape_name: str, *, moe_path: str = "gather",
+          k_local: int = 0, rank: int = 32, remat=True, layers: int = 0,
+          aggregation: str = "fedavg", hetero: bool = False):
+    """(cfg, shape, step fn, meta args, mesh) of ``arch`` at the input
+    shape ``shape_name``; the mesh is the 1x1 one ``ep`` and
+    ``gather_sharded`` run on (None for ``gather``)."""
+    mesh = None if moe_path == "gather" else make_host_mesh("cpu")
     cfg = get_config(arch)
     if layers:
         # DEVFT stage-submodel roofline: a fused submodel IS a shallower
@@ -366,8 +377,9 @@ def build(arch: str, shape_name: str, multi_pod: bool = False, *,
             cfg = with_depths(cfg, allocate_stack_capacities(sizes, layers))
     shape = INPUT_SHAPES[shape_name]
     fn, args = build_cfg(cfg, shape, k_local=k_local, rank=rank,
-                         remat=remat, aggregation=aggregation, hetero=hetero)
-    return cfg, shape, fn, args
+                         remat=remat, aggregation=aggregation, hetero=hetero,
+                         moe_path=moe_path, mesh=mesh)
+    return cfg, shape, fn, args, mesh
 
 
 def measure(fn, args) -> dict:
@@ -393,7 +405,8 @@ def measure(fn, args) -> dict:
             "temp_size_in_bytes": tally.peak - arg_bytes}
 
 
-def calibrate(cfg, shape, *, k_local=0, rank=32, remat=True):
+def calibrate(cfg, shape, *, k_local=0, rank=32, remat=True,
+              moe_path="gather", mesh=None):
     """Per-layer cost from depth-1 and depth-2 variants of each stack:
     corrected totals = fixed + Σ_stack L·per_layer, as the JAX package
     recovers them from unrolled lowers. None for the hybrid family (the
@@ -405,7 +418,8 @@ def calibrate(cfg, shape, *, k_local=0, rank=32, remat=True):
 
     def cost(depths):
         fn, args = build_cfg(with_depths(cfg, depths), shape,
-                             k_local=k_local, rank=rank, remat=remat)
+                             k_local=k_local, rank=rank, remat=remat,
+                             moe_path=moe_path, mesh=mesh)
         m = measure(fn, args)
         return (m["flops"], m["bytes"])
 
@@ -441,19 +455,48 @@ def roofline_terms(flops: float, bytes_moved: float,
             "bottleneck": max(terms, key=terms.get)}
 
 
+def _argument_trees(mesh, kind: str, args, k_local: int):
+    """[(name, tree, shardings)] of a step's input trees, placed as the
+    JAX package's dry-run places them."""
+    p, lo, *rest = args
+    out = [("params", p, shd.params_shardings(mesh, p)),
+           ("lora", lo, shd.params_shardings(mesh, lo))]
+    if k_local or kind == "prefill":
+        out.append(("batch", rest[0], shd.batch_shardings(mesh, rest[0])))
+    elif kind == "train":
+        out += [("opt_state", rest[0], shd.params_shardings(mesh, rest[0])),
+                ("batch", rest[1], shd.batch_shardings(mesh, rest[1]))]
+    else:
+        out += [("batch", rest[0], shd.batch_shardings(mesh, rest[0])),
+                ("cache", rest[1], shd.cache_shardings(mesh, rest[1]))]
+    return out
+
+
+def per_device_argument_bytes(mesh, kind: str, args, k_local: int = 0
+                              ) -> Dict[str, int]:
+    """The bytes of one device's shards of each input tree on ``mesh``
+    (``sharding.shard_shape`` of every leaf)."""
+    return {name: sum(math.prod(shd.shard_shape(mesh, sh.spec, t.shape))
+                      * t.element_size()
+                      for t, sh in zip(tree_leaves(tree),
+                                       tree_leaves(shardings)))
+            for name, tree, shardings in _argument_trees(mesh, kind, args,
+                                                         k_local)}
+
+
 def run_one(arch: str, shape_name: str, multi_pod: bool = False,
             out_dir: Optional[str] = None, *, moe_path: str = "gather",
             k_local: int = 0, tag: str = "", remat=True, layers: int = 0,
             aggregation: str = "fedavg", hetero: bool = False,
             rank: int = 32) -> dict:
     t0 = time.time()
-    cfg, shape, fn, args = build(
-        arch, shape_name, multi_pod, moe_path=moe_path, k_local=k_local,
-        rank=rank, remat=remat, layers=layers, aggregation=aggregation,
-        hetero=hetero)
+    cfg, shape, fn, args, mesh = build(
+        arch, shape_name, moe_path=moe_path, k_local=k_local, rank=rank,
+        remat=remat, layers=layers, aggregation=aggregation, hetero=hetero)
     m = measure(fn, args)
     run_s = time.time() - t0
-    cal = calibrate(cfg, shape, k_local=k_local, rank=rank, remat=remat)
+    cal = calibrate(cfg, shape, k_local=k_local, rank=rank, remat=remat,
+                    moe_path=moe_path, mesh=mesh)
     mf = model_flops(cfg, shape)
     mem = {k: m[k] for k in ("argument_size_in_bytes",
                              "output_size_in_bytes", "temp_size_in_bytes")}
@@ -461,6 +504,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False,
     res = {
         "arch": arch, "shape": shape.name, "chips": 1,
         "device": "NVIDIA H100 SXM 80GB (datasheet peaks)",
+        "mesh": None if mesh is None else "1x1",
         "moe_path": moe_path, "k_local": k_local, "hetero": hetero,
         "remat": remat, "layers": layers or None, "tag": tag,
         "run_s": round(run_s, 1),
@@ -476,10 +520,15 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False,
         "shape_counted_ops": m["kernel_calls"],
     }
     res.update(roofline_terms(m["flops"], m["bytes"], m["dot_flops"]))
+    if multi_pod:
+        res["per_device_argument_bytes"] = per_device_argument_bytes(
+            abstract_production_mesh(multi_pod=True), shape.kind, args,
+            k_local)
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         suffix = (f"_{tag}" if tag else "") + ("_fed" if k_local else "") \
-            + ("_het" if hetero else "")
+            + ("_het" if hetero else "") + ("_mp" if multi_pod else "") \
+            + (f"_{moe_path}" if moe_path != "gather" else "")
         path = os.path.join(out_dir, f"{arch}_{shape.name}{suffix}.json")
         with open(path, "w") as f:
             json.dump(res, f, indent=1)
@@ -492,10 +541,12 @@ def main(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", required=True, choices=list(INPUT_SHAPES))
     ap.add_argument("--multi-pod", action="store_true",
-                    help="not on one card: raises")
+                    help="also report each input tree's bytes per device "
+                         "on the 2x16x16 mesh")
     ap.add_argument("--moe-path", default="gather",
                     choices=["gather", "gather_sharded", "ep"],
-                    help="gather only on one card; the others raise")
+                    help="the MoE blocks' path; ep and gather_sharded run "
+                         "on a 1x1 mesh")
     ap.add_argument("--k-local", type=int, default=0,
                     help="run the federated round step with K local steps")
     ap.add_argument("--aggregation", default="fedavg",

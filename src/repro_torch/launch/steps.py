@@ -1,5 +1,6 @@
 """The production steps of the training and serving paths (the JAX
-package's ``repro.launch.steps``), eager on one device:
+package's ``repro.launch.steps``), eager; each takes the MoE blocks'
+``moe_path`` and the ``mesh`` it runs on (``transformer``):
 
 * ``train_step`` — one global AdamW step on the LoRA params (frozen
   base), block checkpointing by default, CE loss;
@@ -29,36 +30,42 @@ from repro_torch.optim.adamw import adamw_update
 
 
 def make_train_step(cfg, *, window: Optional[int] = None,
+                    moe_path: str = "gather", mesh=None,
                     remat: bool | str = True):
     """remat: True (checkpoint every block), False, or the name of a
     plain ``jax.checkpoint_policies`` policy
     (``transformer.REMAT_POLICIES``)."""
     def train_step(params, lora, opt_state, batch, lr):
         _total, metrics, grads = T.loss_and_lora_grads(
-            cfg, params, lora, batch, window=window, remat=remat)
+            cfg, params, lora, batch, window=window, remat=remat,
+            moe_path=moe_path, mesh=mesh)
         new_lora, new_opt = adamw_update(grads, opt_state, lora, lr)
         return new_lora, new_opt, metrics
 
     return train_step
 
 
-def make_prefill_step(cfg, *, window: Optional[int] = None):
+def make_prefill_step(cfg, *, window: Optional[int] = None,
+                      moe_path: str = "gather", mesh=None):
     @torch.no_grad()
     def prefill_step(params, lora, batch):
-        return T.prefill(cfg, params, lora, batch, window=window)
+        return T.prefill(cfg, params, lora, batch, window=window,
+                         moe_path=moe_path, mesh=mesh)
 
     return prefill_step
 
 
-def make_serve_step(cfg):
+def make_serve_step(cfg, *, moe_path: str = "gather", mesh=None):
     @torch.no_grad()
     def serve_step(params, lora, token, cache):
-        return T.decode_step(cfg, params, lora, token, cache)
+        return T.decode_step(cfg, params, lora, token, cache,
+                             moe_path=moe_path, mesh=mesh)
 
     return serve_step
 
 
 def make_federated_round_step(cfg, *, k_local: int, window=None,
+                              moe_path: str = "gather", mesh=None,
                               remat: bool | str = True,
                               aggregation: str = "fedavg",
                               agg_kwargs: Optional[dict] = None,
@@ -72,7 +79,8 @@ def make_federated_round_step(cfg, *, k_local: int, window=None,
     weights ``(C,)``. Returns (new_lora, mean of the clients' last
     local losses)."""
     del k_local  # shape-carried; kept in the signature for callers
-    local = make_local_train(cfg, remat=remat, window=window)
+    local = make_local_train(cfg, remat=remat, window=window,
+                             moe_path=moe_path, mesh=mesh)
     kw = dict(agg_kwargs or {})
 
     def run(params, lora, client_batches, lr, step_masks=None,

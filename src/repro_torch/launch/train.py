@@ -108,9 +108,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh", default=None,
                     choices=["none", "host", "production"],
                     help="mesh the round engine runs on: none (one "
-                         "device; the port runs nothing else yet), host, "
-                         "production; 'none' clears a spec file's "
-                         "setting")
+                         "device), host (1x1 on --device), production "
+                         "(16x16, a world of 256 ranks); 'none' clears a "
+                         "spec file's setting")
     ap.add_argument("--population", default=None,
                     choices=available_fleets(),
                     help="device fleet the clients are drawn from "

@@ -26,8 +26,12 @@ expert, a SwiGLU MLP of ``d_ff_expert * n_shared_experts`` that every
 token passes through), in training, prefill and decoding; at decode
 ``moe_block`` runs on the (B, d) tokens of one step, so the expert FFN
 sees capacity buffers of 8 rows (the floor of ``_capacity``).
-``moe_block_ep`` (the JAX package's expert-parallel shard_map path)
-needs several devices and is not ported (ROADMAP.md).
+
+``moe_block_ep`` is the JAX package's expert-parallel ``shard_map`` path
+on a ``DeviceMesh``: each rank of the ``model`` axis runs the experts it
+owns on the tokens it holds (its shard of the data axes, the same on
+every ``model`` rank) and the outputs are summed over the ``model``
+group. It keeps the rules above.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import dispatch, ops, ref
 from repro_torch.models.layers import _randn, init_mlp, mlp, model_backend
@@ -113,22 +118,17 @@ def _dispatch_indices(idx: torch.Tensor, n_experts: int, capacity: int):
     return pos, keep, fill
 
 
-def moe_block(params: dict, cfg, x: torch.Tensor, *,
-              capacity: Optional[int] = None):
-    """x: (T, d) flattened tokens -> (y (T, d), aux_loss)."""
-    m = cfg.moe
+def _run_experts(cfg, x, w, eidx, pos, keep, fill, cap, wg, wu, wd):
+    """Slots routed to (expert ``eidx``, row ``pos``) where ``keep``
+    (each (T*k,), token-major) gather their tokens of x (T, d) into
+    (E, cap, d) buffers over the E experts of wg/wu/wd, run the expert
+    SwiGLU and combine back weighted by w (T, k). Returns (T, d)."""
     t, d = x.shape
-    e, k = m.n_experts, m.top_k
-    cap = capacity or _capacity(cfg, t)
-    w, idx, aux = router_topk(params, cfg, x)                     # (T,k)
-    flat_idx = idx.reshape(-1)                                    # (T*k,)
-    pos, keep, fill = _dispatch_indices(flat_idx, e, cap)
-    # gather tokens into (E, C, d) buffers: kept slots own their row;
-    # dropped slots write zeros to the spare row E*C. Slot s holds token
-    # s // k: an expand, whose backward is a sum over k (an index's
-    # backward would be a sort-based scatter)
-    rows = torch.where(keep, flat_idx * cap + pos,
-                       torch.full_like(pos, e * cap))
+    e, k = wg.shape[0], w.shape[1]
+    # kept slots own their row; dropped slots write zeros to the spare
+    # row E*C. Slot s holds token s // k: an expand, whose backward is a
+    # sum over k (an index's backward would be a sort-based scatter)
+    rows = torch.where(keep, eidx * cap + pos, torch.full_like(pos, e * cap))
     tokens = x[:, None, :].expand(t, k, d).reshape(t * k, d)
     vals = torch.where(keep[:, None], tokens, 0)
     flat = x.new_zeros((e * cap + 1, d)).index_put((rows,), vals)
@@ -136,15 +136,13 @@ def moe_block(params: dict, cfg, x: torch.Tensor, *,
     # expert e's rows past fill[e] are zero: the kernel skips their tiles
     backend = model_backend(cfg)
     if dispatch.use_kernel(backend, x.device):
-        out = ops.moe_expert_ffn(buf, params["wg"], params["wu"],
-                                 params["wd"], fill=fill, backend=backend)
+        out = ops.moe_expert_ffn(buf, wg, wu, wd, fill=fill, backend=backend)
     else:
-        out = expert_ffn_reference(buf, params["wg"], params["wu"],
-                                   params["wd"], fill=fill)
+        out = expert_ffn_reference(buf, wg, wu, wd, fill=fill)
     # combine back: the k contributions of each token, in slot order.
     # index_select's backward adds into unique rows but for the dropped
     # slots' zeros, so its result does not depend on the order of adds
-    safe = torch.where(keep, flat_idx * cap + pos, torch.zeros_like(pos))
+    safe = torch.where(keep, eidx * cap + pos, torch.zeros_like(pos))
     gathered = torch.where(keep[:, None], torch.index_select(
         out.reshape(e * cap, d), 0, safe), 0)
     scale = w.reshape(-1)[:, None].to(x.dtype)
@@ -152,6 +150,122 @@ def moe_block(params: dict, cfg, x: torch.Tensor, *,
     y = contrib[:, 0]
     for j in range(1, k):
         y = y + contrib[:, j]
+    return y
+
+
+def moe_block(params: dict, cfg, x: torch.Tensor, *,
+              capacity: Optional[int] = None, mesh=None,
+              constrain: bool = False):
+    """x: (T, d) flattened tokens -> (y (T, d), aux_loss).
+
+    ``mesh`` and ``constrain`` are the JAX package's ``gather_sharded``
+    path: there they pin the dispatch buffers' layout
+    (``with_sharding_constraint``), which changes no value. Eager torch
+    has no layout to pin on plain tensors, so they change nothing here
+    and the result is the ``gather`` path's, bit for bit."""
+    del mesh, constrain
+    m = cfg.moe
+    t = x.shape[0]
+    cap = capacity or _capacity(cfg, t)
+    w, idx, aux = router_topk(params, cfg, x)                     # (T,k)
+    flat_idx = idx.reshape(-1)                                    # (T*k,)
+    pos, keep, fill = _dispatch_indices(flat_idx, m.n_experts, cap)
+    y = _run_experts(cfg, x, w, flat_idx, pos, keep, fill, cap,
+                     params["wg"], params["wu"], params["wd"])
     if "shared" in params:
         y = y + mlp(params["shared"], x[None])[0]
     return y, aux
+
+
+class _SumOver(torch.autograd.Function):
+    """All-reduce (sum) over ``group``; the gradient passes through as it
+    is. JAX's ``psum`` inside ``shard_map``: values that differ by rank
+    summed into one the whole group holds, whose gradient each rank
+    already holds whole (Megatron's reduce from the tensor-parallel
+    region)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _CopyTo(torch.autograd.Function):
+    """The identity; the gradient is all-reduced (summed) over
+    ``group``: a value the whole group holds, feeding work that differs
+    by rank, gets every rank's share of its gradient (Megatron's copy to
+    the tensor-parallel region)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def moe_block_ep(params: dict, cfg, x: torch.Tensor, *, mesh,
+                 tp_axis: str = "model", capacity: Optional[int] = None):
+    """Expert-parallel path (the JAX package's ``moe_block_ep``): x
+    (T_local, d) is this rank's tokens, its shard of the data axes, the
+    same on every rank of ``tp_axis``; the expert weights are the whole
+    (E, ...) tensors, of which this rank runs the E/tp experts its
+    coordinate on ``tp_axis`` owns. Returns (y (T_local, d), aux).
+
+    Per rank: the router over its tokens; the slots routed to its
+    experts into (E/tp, cap_l, d) buffers, ``cap_l = max(8, ceil(T_local
+    k / E) 2)`` (JAX's rule here, not ``_capacity``'s), a slot dropping
+    where its position reaches cap_l; the expert SwiGLU through
+    ``dispatch`` (the ``moe_expert_ffn`` kernel on the card, with the
+    fill); the combine; the outputs summed over ``tp_axis``. The aux loss
+    is the router's over the rank's tokens, averaged over the data axes
+    (JAX's ``pmean``). A group of one rank runs no collective.
+
+    Gradients are JAX's: y's and aux's reach each rank whole (the sum's
+    backward is the identity), and the tokens and routing weights that
+    feed the rank's own experts get the sum over ``tp_axis`` of every
+    rank's share. An expert weight gets the gradient of this rank's
+    tokens only: summing it over the data axes, as a data-parallel
+    optimizer does, gives JAX's. ``capacity`` is not read, as in JAX."""
+    del capacity
+    m = cfg.moe
+    names = mesh.mesh_dim_names
+    tp = mesh.shape[names.index(tp_axis)]
+    e_local = m.n_experts // tp
+    lo = mesh.get_local_rank(tp_axis) * e_local
+    t_l = x.shape[0]
+    cap_l = max(8, -(-t_l * m.top_k // m.n_experts) * 2)
+
+    w, idx, aux = router_topk(params, cfg, x)
+    flat_idx = idx.reshape(-1)
+    local = (flat_idx >= lo) & (flat_idx < lo + e_local)
+    loc_idx = torch.where(local, flat_idx - lo, e_local)  # e_local: drop bin
+    pos, keep, fill = _dispatch_indices(loc_idx, e_local + 1, cap_l)
+    keep = keep & local
+    xs, ws = x, w
+    if tp > 1:
+        group = mesh.get_group(tp_axis)
+        xs, ws = _CopyTo.apply(x, group), _CopyTo.apply(w, group)
+    sl = slice(lo, lo + e_local)
+    y = _run_experts(cfg, xs, ws, loc_idx, pos, keep, fill[:e_local], cap_l,
+                     params["wg"][sl], params["wu"][sl], params["wd"][sl])
+    if tp > 1:
+        y = _SumOver.apply(y, group)
+    if "shared" in params:
+        y = y + mlp(params["shared"], x[None])[0]
+    n_data = 1
+    for a in names:
+        size = mesh.shape[names.index(a)]
+        if a != tp_axis and size > 1:
+            aux = _SumOver.apply(aux, mesh.get_group(a))
+            n_data *= size
+    return y, aux / n_data if n_data > 1 else aux

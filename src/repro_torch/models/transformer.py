@@ -23,6 +23,15 @@ buffer donation. The hybrid order runs layer by layer in
 ``execution_order``, as the JAX package's unrolled loop does.
 ``decode_step`` writes the caches in place (K/V rows, the Mamba conv
 window and SSM state) through those per-layer views.
+
+Meshes (``launch.mesh``): frozen params placed on a mesh as DTensors
+(``launch.sharding.place``) are gathered whole one layer at a time
+(``_layer``), and the leaves outside the layer stacks once per call, so
+the base stays sharded between layers; on a 1x1 mesh a gather is a copy.
+``moe_path`` picks the MoE blocks' path as in the JAX package:
+``gather`` (``moe_block``), ``gather_sharded`` (``moe_block`` with the
+JAX package's layout hints, the same values) or ``ep``
+(``moe_block_ep`` on ``mesh``).
 ``remat`` checkpoints each block as the JAX package wraps each layer's
 body in ``jax.checkpoint``: ``True`` with ``torch.utils.checkpoint``
 (non-reentrant), which recomputes the whole block in the backward, and
@@ -56,6 +65,7 @@ import math
 from typing import Dict, FrozenSet, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -231,12 +241,19 @@ def init_lora(cfg, gen: torch.Generator, rank: int = 32,
 # ---------------------------------------------------------------------------
 
 
-def _ffn(p, cfg, kind, x):
+def _ffn(p, cfg, kind, x, *, moe_path="gather", mesh=None):
     """Returns (y, aux): the MoE block's router loss, or a zero f32 scalar
     for a dense MLP."""
     if kind.endswith("moe"):
         b, s, d = x.shape
-        y, aux = Moe.moe_block(p["ffn"], cfg, x.reshape(b * s, d))
+        flat = x.reshape(b * s, d)
+        if moe_path == "ep":
+            y, aux = Moe.moe_block_ep(p["ffn"], cfg, flat, mesh=mesh)
+        elif moe_path == "gather_sharded":
+            y, aux = Moe.moe_block(p["ffn"], cfg, flat, mesh=mesh,
+                                   constrain=True)
+        else:
+            y, aux = Moe.moe_block(p["ffn"], cfg, flat)
         return y.reshape(b, s, d), aux
     return Lyr.mlp(p["ffn"], x), torch.zeros((), dtype=torch.float32,
                                              device=x.device)
@@ -258,7 +275,7 @@ def _cross_attention(p, cfg, x, cos, sin, ek, ev, backend="reference"):
 
 
 def block_forward(p, cfg, kind, x, cos, sin, lora=None, *, window=None,
-                  causal=True, enc_out=None):
+                  causal=True, enc_out=None, moe_path="gather", mesh=None):
     """Pre-norm residual block over a whole sequence; a ``dec`` block
     given ``enc_out = (K, V)`` adds its cross-attention after the
     self-attention. Returns (y, aux)."""
@@ -279,7 +296,7 @@ def block_forward(p, cfg, kind, x, cos, sin, lora=None, *, window=None,
         x = _cross_attention(p, cfg, x, cos, sin, *enc_out,
                              backend=Lyr.model_backend(cfg))
     h2 = Lyr.rms_norm(x, p["ln2"], cfg.norm_eps)
-    y, aux = _ffn(p, cfg, kind, h2)
+    y, aux = _ffn(p, cfg, kind, h2, moe_path=moe_path, mesh=mesh)
     return x + y, aux
 
 
@@ -327,9 +344,22 @@ def _on_device(a, device) -> torch.Tensor:
     return torch.as_tensor(a).to(device)
 
 
+def _full(a):
+    """A DTensor gathered whole (a plain tensor as it is)."""
+    return a.full_tensor() if isinstance(a, DTensor) else a
+
+
 def _layer(stack, i: int):
-    """Layer ``i``'s views of a stacked tree (None stays None)."""
-    return None if stack is None else tree_map(lambda a: a[i], stack)
+    """Layer ``i``'s views of a stacked tree (None stays None); a DTensor
+    leaf gives layer i gathered whole."""
+    return None if stack is None else tree_map(lambda a: _full(a[i]), stack)
+
+
+def _unplaced_top(params):
+    """``params`` with its leaves outside the layer stacks gathered whole
+    (the stacks are gathered layer by layer in ``_layer``)."""
+    return {k: v if k == "blocks" else tree_map(_full, v)
+            for k, v in params.items()}
 
 
 _aten = torch.ops.aten
@@ -399,7 +429,8 @@ def _remat_wrap(body, saved: Optional[FrozenSet]):
 
 
 def _run_layers(cfg, blocks, lora, x, cos, sin, layers, *, window=None,
-                causal=True, enc_kv=None, remat=False):
+                causal=True, enc_kv=None, remat=False, moe_path="gather",
+                mesh=None):
     """Run ``layers`` ([(stack, index), ...]) over x: per-layer views of
     the stacked leaves, each block checkpointed under ``remat``
     (``remat_saved_ops``); ``enc_kv`` = (K, V) with a leading
@@ -416,7 +447,8 @@ def _run_layers(cfg, blocks, lora, x, cos, sin, layers, *, window=None,
 
         def body(xc, p=p, lo=lo, kind=kinds[name], eo=eo):
             return block_forward(p, cfg, kind, xc, cos, sin, lo,
-                                 window=window, causal=causal, enc_out=eo)
+                                 window=window, causal=causal, enc_out=eo,
+                                 moe_path=moe_path, mesh=mesh)
         x, a = _remat_wrap(body, saved)(x)
         total_aux = total_aux + a
     return x, total_aux
@@ -430,6 +462,7 @@ def encoder_kv(cfg, params, audio_embeds, *, remat=False):
     each (``enc_h @ cross.wk`` / ``cross.wv``, no bias, as in the JAX
     package)."""
     blocks = params["blocks"]
+    params = _unplaced_top(params)
     embed = params["embed"]
     enc_x = _on_device(audio_embeds, embed.device).to(embed.dtype)
     b, se = enc_x.shape[:2]
@@ -441,15 +474,17 @@ def encoder_kv(cfg, params, audio_embeds, *, remat=False):
                            [("enc", i) for i in range(n_enc)], causal=False,
                            remat=remat)
     enc_h = Lyr.rms_norm(enc_h, params["enc_norm"], cfg.norm_eps)
-    cross = blocks["dec"]["cross"]
+    cross = {k: blocks["dec"]["cross"][k] for k in ("wk", "wv")}
     shape = (b, se, cfg.n_kv_heads, cfg.hd)
-    ks, vs = zip(*[(Lyr._matmul(enc_h, wk).reshape(shape),
-                    Lyr._matmul(enc_h, wv).reshape(shape))
-                   for wk, wv in zip(cross["wk"], cross["wv"])])
+    ks, vs = zip(*[(Lyr._matmul(enc_h, c["wk"]).reshape(shape),
+                    Lyr._matmul(enc_h, c["wv"]).reshape(shape))
+                   for c in (_layer(cross, i)
+                             for i in range(stack_sizes(blocks)["dec"]))])
     return torch.stack(ks), torch.stack(vs)
 
 
-def forward_hidden(cfg, params, lora, batch, *, window=None, remat=False):
+def forward_hidden(cfg, params, lora, batch, *, window=None, remat=False,
+                   moe_path="gather", mesh=None):
     """Run every layer in ``execution_order`` (per-layer views of the
     stacked leaves); returns (final-normed hidden (B,S,d), aux, n_prefix):
     aux summed layer by layer as the JAX package's scan carries it,
@@ -458,6 +493,7 @@ def forward_hidden(cfg, params, lora, batch, *, window=None, remat=False):
     without them raises ``KeyError``, as in the JAX package), then the
     decoder over the text."""
     remat_saved_ops(remat)              # a bad name raises before any work
+    params = _unplaced_top(params)
     x, cos, sin, n_prefix = _embed_inputs(cfg, params, batch)
     sizes = stack_sizes(params["blocks"])
     enc_kv = None
@@ -468,17 +504,20 @@ def forward_hidden(cfg, params, lora, batch, *, window=None, remat=False):
         layers = execution_order(cfg, sizes)
     x, total_aux = _run_layers(cfg, params["blocks"], lora, x, cos, sin,
                                layers, window=window, enc_kv=enc_kv,
-                               remat=remat)
+                               remat=remat, moe_path=moe_path, mesh=mesh)
     return (Lyr.rms_norm(x, params["final_norm"], cfg.norm_eps), total_aux,
             n_prefix)
 
 
-def loss_fn(cfg, params, lora, batch, *, window=None, remat=False):
+def loss_fn(cfg, params, lora, batch, *, window=None, remat=False,
+            moe_path="gather", mesh=None):
     """Next-token cross-entropy on the text region (the vision prefix's
     rows are dropped before the logits). Returns (total, {"loss", "aux",
     "acc"}); labels < 0 are masked out."""
+    params = _unplaced_top(params)
     h, aux, n_prefix = forward_hidden(cfg, params, lora, batch,
-                                      window=window, remat=remat)
+                                      window=window, remat=remat,
+                                      moe_path=moe_path, mesh=mesh)
     if n_prefix:
         h = h[:, n_prefix:]
     logits = logits_from_hidden(cfg, params, h).float()
@@ -493,7 +532,7 @@ def loss_fn(cfg, params, lora, batch, *, window=None, remat=False):
 
 
 def loss_and_lora_grads(cfg, params, lora, batch, *, window=None,
-                        remat=False):
+                        remat=False, moe_path="gather", mesh=None):
     """``jax.value_and_grad(loss_fn, has_aux=True)`` with respect to the
     LoRA tree: returns (total, metrics, grads), grads a tree like
     ``lora`` in the leaves' dtypes. The frozen params get no gradient;
@@ -506,7 +545,7 @@ def loss_and_lora_grads(cfg, params, lora, batch, *, window=None,
     leaves = [t for _, t in paths]
     with torch.enable_grad():
         total, metrics = loss_fn(cfg, params, lo, batch, window=window,
-                                 remat=remat)
+                                 remat=remat, moe_path=moe_path, mesh=mesh)
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
     unreached = [path for (path, t), g in zip(paths, grads)
                  if g is None and t.shape[0] > 0]
@@ -518,10 +557,13 @@ def loss_and_lora_grads(cfg, params, lora, batch, *, window=None,
             tree_map(lambda t: by_leaf[id(t)], lo))
 
 
-def prefill(cfg, params, lora, batch, *, window=None):
+def prefill(cfg, params, lora, batch, *, window=None, moe_path="gather",
+            mesh=None):
     """Full-sequence forward; returns the last token's logits (B, 1, Vp)."""
+    params = _unplaced_top(params)
     h, _aux, _n_prefix = forward_hidden(cfg, params, lora, batch,
-                                        window=window)
+                                        window=window, moe_path=moe_path,
+                                        mesh=mesh)
     return logits_from_hidden(cfg, params, h[:, -1:])
 
 
@@ -530,7 +572,8 @@ def prefill(cfg, params, lora, batch, *, window=None):
 # ---------------------------------------------------------------------------
 
 
-def block_decode(p, cfg, kind, x, cache, pos, cos, sin, lora=None):
+def block_decode(p, cfg, kind, x, cache, pos, cos, sin, lora=None, *,
+                 moe_path="gather", mesh=None):
     """Single-token pre-norm residual block; writes ``cache`` in place.
     ``mamba_only`` takes its Mamba cache as is, the other kinds under
     ``"mixer"``; a ``dec`` block also attends (plain, as in the JAX
@@ -555,7 +598,7 @@ def block_decode(p, cfg, kind, x, cache, pos, cos, sin, lora=None):
         x = _cross_attention(p, cfg, x, cos, sin, cache["cross_k"],
                              cache["cross_v"])
     h2 = Lyr.rms_norm(x, p["ln2"], cfg.norm_eps)
-    y, _aux = _ffn(p, cfg, kind, h2)
+    y, _aux = _ffn(p, cfg, kind, h2, moe_path=moe_path, mesh=mesh)
     return x + y, cache
 
 
@@ -601,7 +644,8 @@ def logits_from_hidden(cfg, params, h):
     return Lyr._matmul(h, w)
 
 
-def decode_step(cfg, params, lora, token, cache):
+def decode_step(cfg, params, lora, token, cache, *, moe_path="gather",
+                mesh=None):
     """One-token decode. token: (B, 1) int. Runs every layer in
     ``execution_order``, writing its cache (K/V rows, MLA's latent and
     rotary key, or the conv window and SSM state) in place through
@@ -612,6 +656,7 @@ def decode_step(cfg, params, lora, token, cache):
     gets zero rotary tables, and an M-RoPE config its tables at ``pos``
     in all three streams, as in the JAX package. The encoder does not
     run: ``dec`` layers attend over the cache's ``cross_k``/``cross_v``."""
+    params = _unplaced_top(params)
     x = params["embed"][token]
     b = token.shape[0]
     pos = cache["pos"]
@@ -632,7 +677,8 @@ def decode_step(cfg, params, lora, token, cache):
         x, _ = block_decode(_layer(params["blocks"][name], i), cfg,
                             kinds[name], x,
                             _layer(cache["stacks"][name], i), pos, cos, sin,
-                            _layer(lora.get(name) if lora else None, i))
+                            _layer(lora.get(name) if lora else None, i),
+                            moe_path=moe_path, mesh=mesh)
     h = Lyr.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = logits_from_hidden(cfg, params, h)
     # mask vocab padding so greedy decode never emits a pad id

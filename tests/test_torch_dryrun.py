@@ -10,9 +10,10 @@
   launch the card would make, and ``dispatch`` resolves meta tensors to
   the stand-ins only while the dry-run counts.
 * The CLI runs here, on meta tensors, and writes its JSON without
-  allocating the model; the multi-device options raise.
+  allocating the model, with the multi-device options too.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -178,10 +179,53 @@ def test_cli_runs_an_moe_arch(tmp_path, capsys):
     assert '"bottleneck"' in capsys.readouterr().out
 
 
+@pytest.fixture
+def no_group_left():
+    """``--moe-path ep|gather_sharded`` starts a world-1 group in this
+    process (``make_host_mesh``): destroy it, so no group outlives the
+    test in the worker."""
+    yield
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+
+
 @pytest.mark.parametrize("argv", [["--multi-pod"],
                                   ["--moe-path", "ep"],
                                   ["--moe-path", "gather_sharded"]])
-def test_multi_device_options_raise(argv):
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
-        D.main(["--arch", "granite-moe-1b-a400m", "--shape", "decode_32k",
-                "--out-dir", ""] + argv)
+def test_multi_device_options_raise(argv, tmp_path, no_group_left):
+    """The multi-device options, which raised until the port had meshes,
+    now run and report: ``--multi-pod`` adds each input tree's bytes per
+    device on the 2x16x16 mesh and counts the rest as one card;
+    ``--moe-path`` runs on a 1x1 mesh, ``gather_sharded`` counting what
+    ``gather`` counts and ``ep`` its local capacity's expert FLOPs."""
+    arch, shape = "granite-moe-1b-a400m", "decode_32k"
+    assert D.main(["--arch", arch, "--shape", shape, "--out-dir",
+                   str(tmp_path)] + argv) == 0
+    suffix = "_mp" if argv == ["--multi-pod"] else f"_{argv[1]}"
+    res = json.loads((tmp_path / f"{arch}_{shape}{suffix}.json").read_text())
+    plain = D.run_one(arch, shape)
+    assert res["shape_counted_ops"] == plain["shape_counted_ops"] == {
+        "flash_decode": 24, "moe_expert_ffn": 24}
+    assert res["memory_analysis"] == plain["memory_analysis"]
+    if argv == ["--multi-pod"]:
+        per = res["per_device_argument_bytes"]
+        assert sorted(per) == ["batch", "cache", "lora", "params"]
+        assert 0 < sum(per.values()) < \
+            plain["memory_analysis"]["argument_size_in_bytes"]
+        assert res["mesh"] is None
+    else:
+        assert res["mesh"] == "1x1" and res["moe_path"] == argv[1]
+        assert "per_device_argument_bytes" not in res
+    if argv[-1] == "ep":
+        cfg, t = get_config(arch), get_shape(shape).global_batch
+        m = cfg.moe
+        cap = max(8, -(-math.ceil(t * m.top_k / m.n_experts
+                                  * m.capacity_factor) // 8) * 8)
+        cap_l = max(8, -(-t * m.top_k // m.n_experts) * 2)
+        assert cap_l != cap
+        assert res["flops_per_device"] - plain["flops_per_device"] == 24 * (
+            6 * m.n_experts * (cap_l - cap) * cfg.d_model * m.d_ff_expert)
+    else:
+        for key in ("flops_per_device", "bytes_per_device", "flops_by_dtype",
+                    "calibration"):
+            assert res[key] == plain[key], key

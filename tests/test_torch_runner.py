@@ -136,17 +136,27 @@ def test_runner_checks_its_inputs():
     from repro_torch.data.synthetic import make_federated_data
     data = make_federated_data(cfg.vocab, n_clients=8, seed=0)
     fed = spec.fed_config()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         FederatedRunner(cfg, fed, data, mesh="host", device="cpu")
     for bad in (dict(straggler_policy="never"), dict(weighting="median"),
                 dict(deadline_factor=0.0), dict(method="fedprox")):
         with pytest.raises(ValueError):
             FederatedRunner(cfg, dataclasses.replace(fed, **bad), data,
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        run_experiment(spec.replace(mesh="host"), device="cpu")
     tiny = spec.replace(rounds=1, pretrain_steps=0, layers=1, n_clients=2,
                         sample_frac=0.5, k_local=1, local_batch=1, seq=8)
+    # mesh="host" runs on a 1x1 mesh (a world-1 group, destroyed here:
+    # none may outlive the test in the worker) and gives mesh=None's bits
+    try:
+        on_mesh = run_experiment(tiny.replace(mesh="host"), device="cpu")
+    finally:
+        torch.distributed.destroy_process_group()
+    plain = run_experiment(tiny, device="cpu")
+    assert [dataclasses.asdict(log) for log in on_mesh.logs] \
+        == [dataclasses.asdict(log) for log in plain.logs]
+    for a, b in zip(interop.tree_leaves(on_mesh.final_lora),
+                    interop.tree_leaves(plain.final_lora)):
+        assert torch.equal(a, b)
     exported = run_experiment(tiny, export_adapters=True, device="cpu")
     assert sorted(exported.adapter_registry.ids()) \
         == ["client/0", "client/1", "global"]

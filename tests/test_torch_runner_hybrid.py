@@ -85,8 +85,8 @@ def run_pair_by_round(monkeypatch, jspec, pspec):
 
     port_program = PS.make_round_program
 
-    def replaying(strategy, run_state, sub_cfg, n_sample):
-        fn, aux = port_program(strategy, run_state, sub_cfg, n_sample)
+    def replaying(strategy, run_state, sub_cfg, n_sample, mesh=None):
+        fn, aux = port_program(strategy, run_state, sub_cfg, n_sample, mesh)
 
         def round_fn(params, lora, batches, lr, *rest):
             jparams, jlora, jbatches, jlr = recorded[len(seen)]
