@@ -87,6 +87,15 @@ order:
    and held against its plain version, and the host time of one call
    through the raw wrapper and through ``dispatch`` without and with
    the cache installed;
+   then contracts: ``repro_torch.analysis``'s C001 on the card (every
+   backend of every kernel over its contract shape family on real
+   tensors: ``pallas`` and ``auto`` are the hand kernels, each launch
+   count rising by exactly its cases x 2), C003 on the card (one step
+   of a reduced qwen2-7b, deepseek-v3-671b and mamba2-2.7b engine in the
+   base, shared and multi-tenant modes) and C002 on meta tensors; zero
+   findings; then each hand kernel once at the first case of its family,
+   in f32 and in bf16, under ``guard_syncs("warn")``: the synchronizing
+   calls each wrapper made (a count, not a check);
 3. serving: qwen2-7b unreduced (28 layers, d 3584, 28/4 heads, vocab
    152064), then granite-moe-1b-a400m, mamba2-2.7b, jamba-v0.1-52b,
    deepseek-v3-671b, qwen2-vl-7b (text requests) and whisper-tiny (its
@@ -102,7 +111,11 @@ order:
    once per MoE layer, every
    call on ``wgmma`` with the fill, unpadded; no training kernel; every
    kernel 0 on mamba2, whose decoding the JAX package keeps plain);
-   decode p50/p99, TTFT p50, tok/s, peak memory, finite logits;
+   decode p50/p99, TTFT p50, tok/s, peak memory, finite logits; one
+   engine step under ``guard_syncs("warn")`` with its synchronizing
+   calls counted, and after the run the engine's ``StepContract``
+   (int32 next tokens, the cache's shapes and dtypes kept) held by
+   ``check_step_contract`` at full width;
 4. trace: for each served arch, device busy share over a few profiled
    engine steps, kernels a step, and each hand kernel's share of it;
 5. parity: reduced qwen2-7b, granite-moe-1b-a400m, mamba2-2.7b,
@@ -1154,6 +1167,8 @@ def serve_arch_phase(arch, seed: int = 0):
     steps. Returns the (``flash_decode``, ``moe_expert_ffn``) launches."""
     import dataclasses
 
+    from repro_torch.analysis import guard_syncs
+    from repro_torch.analysis.contracts.serving import check_step_contract
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     from repro_torch.serving import AdapterRegistry, ServingEngine
@@ -1249,8 +1264,19 @@ def serve_arch_phase(arch, seed: int = 0):
         for _ in range(n):
             engine.step()
     _profile(tag, f"{n} profiled engine steps", some_steps, n)
+    check(engine.has_work(), f"{tag}: no request left for the sync count")
+    with guard_syncs("warn") as syncs:
+        engine.step()
+    print(f"[{tag}] one engine step under guard_syncs('warn'): "
+          f"{syncs.count} synchronizing calls")
     while engine.has_work():
         engine.step()
+    mismatches = check_step_contract(engine)
+    check(not mismatches, f"{tag}: StepContract: {mismatches}")
+    print(f"[{tag}] StepContract holds at full width: next tokens "
+          f"int32[{n_slots}], the cache's "
+          f"{len(_leaves(engine.kv.cache))} leaves keep their shapes and "
+          f"dtypes")
     _reset_all_counts()
     return launches["flash_decode_bhrd"], launches["moe_expert_ffn_ecd"]
 
@@ -2530,6 +2556,75 @@ def autotune_phase(seed: int = 0):
           f"{time.perf_counter() - t0:.1f} s")
 
 
+#: operands that stay f32 when a kernel's others are bf16 (the SSD's
+#: step sizes, decay and skip, as the model feeds them)
+F32_OPERANDS = {"ssd_scan": ("dt", "a", "d")}
+
+
+def contracts_phase(seed: int = 0):
+    """``repro_torch.analysis``'s contract layer on the card: C001 with
+    every kernel's backends over its shape family on real tensors (the
+    only place the hand kernels meet their declared contracts), C003 on
+    the card's engines, C002 on meta tensors; zero findings; each
+    wrapper's launches since the reset exactly its C001 cases x the two
+    backends (``pallas``, ``auto``) that resolve to it. Then each hand
+    kernel once at its family's first case, in f32 and in bf16, under
+    ``guard_syncs("warn")``, printing the synchronizing calls it made."""
+    from repro_torch.analysis import guard_syncs
+    from repro_torch.analysis.contracts import shapes
+    from repro_torch.analysis.contracts.kernels import check_kernels
+    from repro_torch.analysis.contracts.serving import check_serving
+    from repro_torch.analysis.contracts.strategies import check_strategies
+    from repro_torch.kernels import dispatch
+
+    t0 = time.perf_counter()
+    contracts = dispatch.kernel_contracts()
+    wrappers = {name: dispatch.get_kernel(name, "pallas", "cuda",
+                                          tuned=False)
+                for name in contracts}
+    _reset_all_counts()
+    findings, stats = check_kernels("cuda", seed)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in _path_kernels()}
+    want = {fn.__name__: 2 * len(list(shapes.kernel_cases(
+        contracts[name].family))) for name, fn in wrappers.items()}
+    check(launches == want, f"[contracts] C001 launches {launches}, want "
+          f"{want} (cases x pallas, auto)")
+    t_c001 = time.perf_counter() - t0
+    more, serve_stats = check_serving("cuda", seed)
+    torch.cuda.synchronize()
+    findings += more
+    stats.update(serve_stats)
+    t_c003 = time.perf_counter() - t0 - t_c001
+    more, strategy_stats = check_strategies()
+    findings += more
+    stats.update(strategy_stats)
+    check(not findings, "[contracts] findings:\n"
+          + "\n".join(f.render() for f in findings))
+    print(f"[contracts] {json.dumps(stats)}")
+    print(f"[contracts] 0 findings; C001 launches {launches} (= cases x "
+          f"2); C001 {t_c001:.1f} s, C003 {t_c003:.1f} s, C002 (meta) "
+          f"{time.perf_counter() - t0 - t_c001 - t_c003:.1f} s")
+
+    counts = {}
+    for name, fn in sorted(wrappers.items()):
+        tag, args, kwargs = next(shapes.kernel_cases(
+            contracts[name].family, "cuda", seed))
+        for dtype in (torch.float32, torch.bfloat16):
+            cast = [a if k in F32_OPERANDS.get(name, ()) else a.to(dtype)
+                    for k, a in args.items()]
+            fn(*cast, **kwargs)                      # plan and workspace
+            torch.cuda.synchronize()
+            with guard_syncs("warn") as syncs:
+                fn(*cast, **kwargs)
+            torch.cuda.synchronize()
+            counts[f"{fn.__name__} {tag} {str(dtype)[6:]}"] = syncs.count
+    print(f"[contracts] synchronizing calls per wrapper call under "
+          f"guard_syncs('warn'): {json.dumps(counts)}")
+    _reset_all_counts()
+    print(f"[contracts] phase {time.perf_counter() - t0:.1f} s")
+
+
 def _dispatch_host_cost(cache, seed: int = 0):
     """Host time of one call at each path shape: the raw wrapper, then
     resolved through ``dispatch.get_kernel`` per call (as ``kernels.ops``
@@ -3567,6 +3662,7 @@ def main() -> int:
     ssd_rows = ssd_phase(ssd_scan_bshp, ref.ssd_scan_bshp_chunked_ref,
                          ref.ssd_scan_bshp_ref)
     autotune_phase()
+    contracts_phase()
     serve_launches = {arch: serve_arch_phase(arch) for arch in SERVE_ARCHS}
     torch.cuda.empty_cache()
     parity_phase()

@@ -41,11 +41,12 @@ from repro_torch.federated import aggregation as agg_mod
 
 @dataclasses.dataclass(frozen=True)
 class AggregateContract:
-    """Declared contract of a Strategy's round, kept as data (the JAX
-    package verifies it with its analysis tooling, which the port does
-    not have yet): the aggregated adapter tree carries the shapes and
-    dtypes of the incoming global tree, and the per-client uplink byte
-    count is a Python int computable from shapes.
+    """Declared contract of a Strategy's round, verified by the port's
+    contract layer (``python -m repro_torch.analysis --contracts``, C002,
+    which runs every strategy's round program on meta tensors): the
+    aggregated adapter tree carries the shapes and dtypes of the
+    incoming global tree, and the per-client uplink byte count is a
+    Python int computable from shapes.
 
     ``uplink`` documents what the method actually transmits:
     ``"full"`` (whole adapter tree), ``"a_only"`` (FedSA),

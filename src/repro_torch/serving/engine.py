@@ -20,9 +20,14 @@ layer-major, ``(L, B, ...)``, so the layer loop hands each projection
 batched ``(B, din, r)`` factors. Finished slots are recycled by zeroing
 their cache lane in place (``KVCacheManager.reset_slot``).
 
-Each step makes one host sync, to read the next tokens. ``warmup()``
-runs one masked step before any request is timed; on the card that is
-where the kernels are built and first launched.
+Each step reads its next tokens back (int32, as the JAX package's step
+returns them): one device-to-host sync. Its three inputs (the
+slot->adapter index, the tokens, the active mask) are copied from
+pageable host memory, and each copy waits for the stream too, so
+``repro_torch.analysis.guard_syncs("warn")`` counts 4 synchronizing
+calls a multi-tenant step. ``warmup()`` runs one masked step before any
+request is timed; on the card that is where the kernels are built and
+first launched.
 
 Engine modes (mutually exclusive):
 
@@ -33,6 +38,7 @@ Engine modes (mutually exclusive):
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable, List, Optional, Sequence
 
@@ -48,7 +54,23 @@ from repro_torch.serving.scheduler import Request, RequestState, SlotScheduler
 OVERFLOW = ("error", "ring")
 
 
+@dataclasses.dataclass(frozen=True)
+class StepContract:
+    """Declared contract of the engine's step (``_step``), verified by
+    ``python -m repro_torch.analysis --contracts`` across arch families
+    and the base, shared and multi-tenant adapter modes (C003): the
+    next-token vector is ``int32[n_slots]``, and the new cache carries
+    exactly the shapes and dtypes of the cache the step was given.
+    ``donated`` names that operand: the new cache replaces the old one
+    (the JAX package donates it to its jitted step; torch has no
+    donation, and the step writes the cache in place)."""
+    next_tokens_dtype: str = "int32"
+    donated: str = "cache"
+
+
 class ServingEngine:
+    #: the step's contract (see :class:`StepContract`)
+    contract = StepContract()
 
     def __init__(self, cfg, params, *, lora=None,
                  adapters: Optional[AdapterRegistry] = None,
@@ -83,7 +105,8 @@ class ServingEngine:
     def _step(self, idx: np.ndarray, tokens: np.ndarray,
               active: np.ndarray) -> torch.Tensor:
         """Run decode_step over every slot; keep the new cursor only on
-        active slots. Returns the next token of every slot (on device)."""
+        active slots. Returns the next token of every slot (int32, on
+        device)."""
         dev = self.device
         if self.adapters is not None:
             rows = torch.as_tensor(idx, device=dev)
@@ -100,7 +123,7 @@ class ServingEngine:
         logits, new = T.decode_step(self.cfg, self.params, lora, tokens, cache)
         new["pos"] = torch.where(active, new["pos"], cache["pos"])
         self.kv.cache = new
-        return torch.argmax(logits[:, -1], dim=-1)
+        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
     # ---- request intake ----------------------------------------------
     def submit(self, prompt, *, max_new_tokens: int = 16,
@@ -181,7 +204,7 @@ class ServingEngine:
 
         t0 = self._clock()
         nxt = self._step(self._adapter_idx, tokens, mask)
-        nxt_host = nxt.cpu().numpy()               # the step's one host sync
+        nxt_host = nxt.cpu().numpy()               # the step's one read back
         dt = self._clock() - t0
         now = t0 + dt
 

@@ -154,6 +154,12 @@ PORTED_MODULES = {
     # MoE and Mamba-2 decoding, the hybrid order
     "repro_torch.models.transformer", "repro_torch.models.moe",
     "repro_torch.serving.kv_cache", "repro_torch.serving.adapters",
+    # the lint and contract layer
+    "repro_torch.analysis", "repro_torch.analysis.__main__",
+    "repro_torch.analysis.rules.r002_mask_constants",
+    "repro_torch.analysis.contracts.kernels",
+    "repro_torch.analysis.contracts.strategies",
+    "repro_torch.analysis.contracts.serving",
 }
 
 
