@@ -17,7 +17,8 @@ global adapter served; whisper-tiny's submodels; granite's run again on
 the 1x1 device mesh, and its train step on each MoE path, the
 expert-parallel one included) through the port's own
 entry points at full width with random weights (jamba's and deepseek's
-depth cut), and checks card-vs-CPU parity at reduced sizes. Phases, in
+depth cut), checks card-vs-CPU parity at reduced sizes, and runs the
+four examples (``examples/torch_*.py``) through their ``main``. Phases, in
 order:
 
 1. device: card, power limit, versions, kernel build time, ptxas lines
@@ -243,6 +244,25 @@ order:
    1e-2; ep's gradients within ``MESH_GRAD_RATIO`` times gather's own
    difference, at most ``MESH_GRAD_TOL`` of their norms), step times and
    peak memory.
+16. examples, after the mesh phase: the four ``examples/torch_*.py``
+   through their ``main(argv)`` on the card, in f32 as in the JAX
+   package. quickstart (the preset: reduced llama2-7b-proxy, 8 layers,
+   12 rounds of DevFT at capacities 2, 4, 8): exact launches derived from
+   its RoundLogs (``lora_matmul`` and ``flash_attention`` on ``fma_f32``),
+   its integer books equal to the same run on the CPU, then ``--rounds
+   2`` from a fresh interpreter; stage_anatomy: DBLF error within
+   ``EXAMPLE_DBLF_TOL``, the transfer broadcast, and the card's groups
+   beside the CPU port's on the same tensors, with W's eigen-gap;
+   serve_adapter on every arch (reduced; 16 prompt and 16 generated
+   tokens at batch 4, with the adapter and merged): exact launches per
+   decode step derived from the config (``flash_decode`` a layer that
+   attends over a cache, ``moe_expert_ffn`` a MoE layer, both ``fma``;
+   ``lora_matmul`` none: decoding passes no backend, as in JAX), per-token
+   ms with and without the adapter, adapter and merged logits within
+   ``EXAMPLE_MERGED_TOL`` and the same tokens; the ~100M run at its
+   defaults (12 layers d 512, DevFT and FedIT, 30 rounds each): exact
+   launches, per-method wall and final loss, the JSON it writes, and
+   DevFT's comm and FLOPs ratios (both above 1).
 
 Every phase raises on failure, so the script exits non-zero; it also
 exits non-zero, printing no result, without a CUDA card or without the
@@ -463,7 +483,9 @@ def kernel_phase(flash_decode_bhrd, flash_decode_ref, seed: int = 0):
         ("rep16 C1000 bf16", 4, 32, 2, 128, 128, 1000,
          torch.bfloat16, torch.bfloat16),
     ] + [(case, b, h, hkv, hd, vd, cap, torch.bfloat16, torch.bfloat16)
-         for (b, h, hkv, hd, vd, cap), case in SERVED_DECODE.items()]
+         for (b, h, hkv, hd, vd, cap), case in SERVED_DECODE.items()] + [
+        (case, b, h, hkv, hd, vd, cap, torch.float32, torch.float32)
+        for (b, h, hkv, hd, vd, cap), case in EXAMPLE_DECODE.items()]
     rows = {}
     for name, b, h, hkv, hd, vd, cap, qdt, kvdt in cases:
         def rand(*shape, dt):
@@ -702,7 +724,8 @@ def lora_phase(lora_matmul_fused, lora_matmul_ref, seed: int = 0):
         # whisper-tiny's decoder W_q and W_v (MHA: one shape), 4 x 448
         ("whisper wq/wv M1792 K384 N384 r32 bf16", (4, 448, 384), 384, 32,
          bf16),
-    ]
+    ] + [(case, (b, sq, k), n, r, torch.float32)
+         for (b, sq, k, n, r), case in EXAMPLE_LORA.items()]
     rows = {}
     for name, xs, n, r, dt in cases:
         k = xs[-1]
@@ -729,7 +752,8 @@ def lora_phase(lora_matmul_fused, lora_matmul_ref, seed: int = 0):
         check(p.variant == ("wgmma" if dt == bf16 else "fma_f32"),
               f"lora {name}: variant {p.variant}")
         on_path = name == LORA_PATH or name.startswith(
-            ("granite", "mamba", "jamba", "deepseek", "qwen2-vl", "whisper"))
+            ("granite", "mamba", "jamba", "deepseek", "qwen2-vl", "whisper",
+             "quickstart", "100M"))
         check(not (on_path and p.padded),
               f"lora {name}: a training path's shape padded ({p})")
         if name == LORA_PATH:
@@ -938,7 +962,8 @@ def attention_phase(flash_attention_bshd, attention_bshd_ref,
         # 16 blocks: fewer than the card's SMs
         ("grid B1 S1024 H2 D128 causal bf16", 1, 1024, 2, 2, 128, True,
          None, bf16, "randn"),
-    ]
+    ] + [(case, b, sq, h, hkv, d, True, None, f32, "randn")
+         for (b, sq, h, hkv, d), case in EXAMPLE_FLASH.items()]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
     for name, b, s, h, hkv, d, causal, window, dt, inputs in cases:
@@ -1793,7 +1818,8 @@ def moe_phase(moe_expert_ffn_ecd, moe_expert_ffn_ref, seed: int = 0):
         # 22.5 GB of expert weights: the f32-inside version is built
         # 16 experts at a time
         (MOE_DEEPSEEK, 256, 160, 7168, 2048, bf16, False, "wgmma"),
-    ]
+    ] + [(case, e, c, d, ff, torch.float32, True, "fma")
+         for (e, c, d, ff), case in EXAMPLE_MOE.items()]
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def bmm_ffn(buf, wg, wu, wd):
@@ -3628,6 +3654,310 @@ def _leaves(tree):
     return tree_leaves(tree)
 
 
+#: the port's examples (``examples/torch_*.py``), driven by
+#: ``examples_phase`` through their ``main(argv)``
+EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "examples")
+#: serve_adapter's adapter run against its merged run, row-scaled over the
+#: live vocabulary: B is zero, so ``merge_lora`` adds exact zeros to W and
+#: the adapter run adds exact zeros to x @ W; the limit is f32 summation
+#: order only
+EXAMPLE_MERGED_TOL = 1e-5
+#: stage_anatomy's Eq. 5 check on the card (the CPU test holds 1e-6)
+EXAMPLE_DBLF_TOL = 1e-5
+#: the examples' kernel shapes, each held against its plain version in
+#: f32 by a kernel-phase case (``examples_phase`` checks that every shape
+#: it launches is here). lora_matmul (B, S, K, N, r) and flash_attention
+#: (B, S, H, Hkv, D): quickstart's local steps (8 x 32 tokens) and evals
+#: (16 x 32, ``EVAL_BATCH``), the ~100M run's (8 x 64 and 16 x 64);
+#: W_q and W_v have the same N in both
+EXAMPLE_LORA = {
+    (8, 32, 256, 256, 8): "quickstart M256 K256 N256 r8 f32",
+    (16, 32, 256, 256, 8): "quickstart eval M512 K256 N256 r8 f32",
+    (8, 64, 512, 512, 16): "100M M512 K512 N512 r16 f32",
+    (16, 64, 512, 512, 16): "100M eval M1024 K512 N512 r16 f32",
+}
+EXAMPLE_FLASH = {
+    (8, 32, 4, 4, 64): "quickstart B8 S32 H4 D64 causal f32",
+    (16, 32, 4, 4, 64): "quickstart eval B16 S32 H4 D64 causal f32",
+    (8, 64, 8, 8, 64): "100M B8 S64 H8 D64 causal f32",
+    (16, 64, 8, 8, 64): "100M eval B16 S64 H8 D64 causal f32",
+}
+#: serve_adapter's decode shapes over the reduced archs at batch 4 and 32
+#: cache rows: flash_decode (B, H, Hkv, hd, vd, C), moe_expert_ffn (E, C,
+#: d, ff)
+EXAMPLE_DECODE = {
+    (4, 4, 2, 64, 64, 32): "examples decode B4 C32 H4/2 hd64 f32",
+    (4, 4, 4, 64, 64, 32): "examples decode B4 C32 H4/4 hd64 f32",
+    (4, 4, 1, 48, 32, 32): "examples mla decode B4 C32 H4/1 hd48 vd32 f32",
+}
+EXAMPLE_MOE = {(4, 8, 256, 256): "examples decode E4 C8 d256 ff256 f32"}
+#: the round engine's eval batch (``FederatedRunner.run``: 16 sequences)
+EVAL_BATCH = 16
+
+
+def _example(name):
+    """``examples/<name>.py`` loaded as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(EXAMPLES_DIR, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _check_example_training(tag, runs):
+    """The launches since the last reset are those of ``runs`` (dense
+    llama-kind ``RunResult``s in f32): each round runs (sampled clients x
+    K local steps + its eval) forwards of the round's capacity in layers,
+    ``lora_matmul`` twice a layer (W_q, W_v) and ``flash_attention``
+    once, all on their ``fma_f32`` variants unpadded, nothing else; then
+    every count goes back to 0."""
+    layer_forwards = 0
+    for res in runs:
+        spec, last = res.spec, len(res.logs) - 1
+        clients = max(1, int(spec.n_clients * spec.sample_frac))
+        for log in res.logs:
+            evals = int(log.round % spec.eval_every == 0 or log.round == last)
+            layer_forwards += (clients * spec.k_local + evals) * log.capacity
+    kernels = _path_kernels()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    want = {name: 0 for name in launches}
+    want["lora_matmul_fused"] = 2 * layer_forwards
+    want["flash_attention_bshd"] = layer_forwards
+    check(launches == want, f"{tag}: launches {launches}, want {want}")
+    lm, fa = kernels[1], kernels[2]
+    check(dict(lm.variants) == {"fma_f32": lm.launches} and lm.padded == 0,
+          f"{tag}: lora_matmul variants {dict(lm.variants)}, padded "
+          f"{lm.padded}")
+    check(dict(fa.variants) == {"fma_f32": fa.launches},
+          f"{tag}: flash_attention variants {dict(fa.variants)}")
+    print(f"[{tag}] launches {launches} = {layer_forwards} layer-forwards "
+          f"(derived from the RoundLogs), all on fma_f32, none padded")
+    _reset_all_counts()
+    return launches
+
+
+def _held_training(tag, spec):
+    """The kernel-phase cases at the shapes a run of ``spec`` (dense, f32)
+    launches: its local steps' and its evals'; raises where no case holds
+    one."""
+    cfg = spec.build_cfg()
+    held = []
+    for b in (spec.local_batch, EVAL_BATCH):
+        for key, table in (
+                ((b, spec.seq, cfg.d_model, cfg.n_heads * cfg.hd,
+                  spec.lora_rank), EXAMPLE_LORA),
+                ((b, spec.seq, cfg.d_model, cfg.n_kv_heads * cfg.hd,
+                  spec.lora_rank), EXAMPLE_LORA),
+                ((b, spec.seq, cfg.n_heads, cfg.n_kv_heads, cfg.hd),
+                 EXAMPLE_FLASH)):
+            check(key in table, f"{tag}: no kernel-phase case holds {key}")
+            held.append(table[key])
+    return sorted(set(held))
+
+
+def _decode_launches(cfg):
+    """One ``decode_step``'s launches: ``flash_decode`` once a layer of
+    every kind that attends over a cache (GQA, MLA, the decoder's self-
+    attention) and ``moe_expert_ffn`` once a MoE layer; Mamba mixers and
+    the encoder launch none."""
+    from repro_torch.models import transformer as T
+    sizes = dict(cfg.layer_stacks())
+    per = {"flash_decode_bhrd": 0, "moe_expert_ffn_ecd": 0}
+    for name, kind in T.stack_kinds(cfg).items():
+        if kind == "enc":
+            continue
+        if not kind.startswith("mamba"):
+            per["flash_decode_bhrd"] += sizes[name]
+        if kind.endswith("moe"):
+            per["moe_expert_ffn_ecd"] += sizes[name]
+    return per
+
+
+def examples_phase():
+    """The four examples (``examples/torch_*.py``) through their
+    ``main(argv)`` on the card, in f32 as in the JAX package: quickstart
+    (its preset's 12 rounds; launches derived from the RoundLogs; the
+    integer books against the same run on the CPU; then ``--rounds 2``
+    from a fresh interpreter), stage_anatomy (DBLF error, the broadcast,
+    the card's groups beside the CPU port's on the same tensors),
+    serve_adapter on every arch (launches per decode step derived from the
+    config; adapter vs merged logits and tokens) and the ~100M DevFT-vs-
+    FedIT run at its defaults. Returns each example's launches."""
+    import collections
+    import io
+
+    from repro_torch.configs import ALL_ARCH_IDS, get_config, reduce_config
+    from repro_torch.interop import tree_map
+    from repro_torch.models.moe import _capacity
+
+    t_phase = time.perf_counter()
+    walls, launches = {}, {}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[key] = time.perf_counter() - t0
+        return out
+
+    # quickstart: the preset on the card, then the same run on the CPU
+    tag = "examples quickstart"
+    qs = _example("torch_quickstart")
+    _reset_all_counts()
+    result = timed("quickstart", lambda: qs.main(["--device", "cuda"]))
+    launches["quickstart"] = _check_example_training(tag, [result])
+    print(f"[{tag}] shapes held in the kernel phases by "
+          f"{_held_training(tag, result.spec)}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = timed("quickstart on the CPU",
+                    lambda: qs.run(qs.build_spec(), device="cpu"))
+    books = [[getattr(log, f) for f in ROUNDLOG_INTS] for log in result.logs]
+    check(books == [[getattr(log, f) for f in ROUNDLOG_INTS]
+                    for log in cpu.logs],
+          f"{tag}: integer books differ from the CPU run's")
+    check(all(np.isfinite(log.eval_loss) for log in result.logs),
+          f"{tag}: non-finite eval loss")
+    print(f"[{tag}] {len(books)} rounds, capacities "
+          f"{[log.capacity for log in result.logs]}: {ROUNDLOG_INTS} equal "
+          f"to the CPU run's; final eval loss card "
+          f"{result.logs[-1].eval_loss:.4f}, CPU {cpu.logs[-1].eval_loss:.4f} "
+          f"(each device draws its own initial weights); wall card "
+          f"{walls['quickstart']:.1f} s, CPU "
+          f"{walls['quickstart on the CPU']:.1f} s")
+    src = os.path.join(os.path.dirname(EXAMPLES_DIR), "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable,
+                          os.path.join(EXAMPLES_DIR, "torch_quickstart.py"),
+                          "--rounds", "2"], capture_output=True, text=True,
+                         env=env, timeout=300)
+    walls["quickstart --rounds 2, fresh interpreter"] = \
+        time.perf_counter() - t0
+    check(out.returncode == 0 and "final loss" in out.stdout,
+          f"{tag}: the script exited {out.returncode}: "
+          f"{out.stdout[-2000:]}{out.stderr[-2000:]}")
+    print(f"[{tag}] examples/torch_quickstart.py --rounds 2 in a fresh "
+          f"interpreter: exit 0 in "
+          f"{walls['quickstart --rounds 2, fresh interpreter']:.1f} s; "
+          f"{out.stdout.strip().splitlines()[-1]}")
+
+    # stage anatomy: W and the submodels on the card, then the CPU port's
+    # groups on the same tensors
+    tag = "examples stage_anatomy"
+    sa = _example("torch_stage_anatomy")
+    _reset_all_counts()
+    card = timed("stage_anatomy", lambda: sa.main(["--device", "cuda"]))
+    kernels = {fn.__name__: fn.launches for fn in _path_kernels()}
+    check(not any(kernels.values()), f"{tag}: launches {kernels}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        host = sa.anatomy(card["cfg"], tree_map(lambda t: t.cpu(),
+                                                card["params"]),
+                          tree_map(lambda t: t.cpu(), card["lora"]))
+    w = host["w"].astype(np.float64)
+    np.fill_diagonal(w, 0.0)
+    eig = np.linalg.eigvalsh(np.diag(w.sum(1)) - w)
+    off = w[~np.eye(len(w), dtype=bool)]
+    w_diff = float(np.abs(card["w"] - host["w"]).max())
+    for cap, st in card["stages"].items():
+        check(st["dblf_err"] <= EXAMPLE_DBLF_TOL and st["broadcast"]
+              and st["depth"] == cap,
+              f"{tag}: capacity {cap}: DBLF error {st['dblf_err']}, "
+              f"broadcast {st['broadcast']}, depth {st['depth']}")
+        cpu_groups = host["stages"][cap]["groups"]
+        same = st["groups"] == cpu_groups
+        print(f"[{tag}] capacity {cap}: groups (card) {st['groups']}; CPU "
+              f"port {'equal' if same else cpu_groups}; max |W card - W "
+              f"cpu| {w_diff:.3g}; W off the diagonal in "
+              f"[{off.min():.4f}, {off.max():.4f}]; eigen-gap "
+              f"{eig[cap] - eig[cap - 1]:.3g}; DBLF max|err| "
+              f"{st['dblf_err']:.2e} (tol {EXAMPLE_DBLF_TOL}); broadcast "
+              f"correct")
+    del card, host
+
+    # serve_adapter on every arch: the adapter run, then the merged one
+    sv = _example("torch_serve_adapter")
+    launches["serve_adapter"] = collections.Counter()
+    for arch in ALL_ARCH_IDS:
+        tag = f"examples serve_adapter {arch}"
+        cfg = reduce_config(get_config(arch))
+        _reset_all_counts()
+        out = timed(f"serve_adapter {arch}",
+                    lambda: sv.main(["--arch", arch, "--device", "cuda"]))
+        (t_a, tok_a, log_a), (t_m, tok_m, log_m) = \
+            out["adapter"], out["merged"]
+        steps = log_a.shape[1] + log_m.shape[1]
+        per_step = _decode_launches(cfg)
+        held = []
+        if per_step["flash_decode_bhrd"]:
+            # the cache holds the prompt and the generated tokens: one
+            # row more than a run's steps
+            shape = _decode_shape(cfg, tok_a.shape[0], log_a.shape[1] + 1)
+            check(shape in EXAMPLE_DECODE, f"{tag}: no kernel-phase case "
+                  f"holds flash_decode at {shape}")
+            held.append(EXAMPLE_DECODE[shape])
+        if per_step["moe_expert_ffn_ecd"]:
+            shape = (cfg.moe.n_experts, _capacity(cfg, tok_a.shape[0]),
+                     cfg.d_model, cfg.moe.d_ff_expert)
+            check(shape in EXAMPLE_MOE, f"{tag}: no kernel-phase case "
+                  f"holds moe_expert_ffn at {shape}")
+            held.append(EXAMPLE_MOE[shape])
+        launches["serve_adapter"].update(_check_serve_launches(
+            tag, per_step, steps, torch.float32))
+        _reset_all_counts()
+        live = slice(0, cfg.vocab)
+        check(bool(torch.isfinite(log_a[..., live]).all()),
+              f"{tag}: non-finite logits")
+        err, row = _row_scaled(log_a[..., live], log_m[..., live])
+        check(row <= EXAMPLE_MERGED_TOL and torch.equal(tok_a, tok_m),
+              f"{tag}: adapter vs merged logits row-scaled {row} (tol "
+              f"{EXAMPLE_MERGED_TOL}), tokens equal "
+              f"{torch.equal(tok_a, tok_m)}")
+        print(f"[{tag}] per-token decode {t_a * 1e3:.2f} ms with adapter, "
+              f"{t_m * 1e3:.2f} ms merged; {steps} steps, launches a step "
+              f"{per_step}; adapter vs merged logits max abs {err:.3g}, "
+              f"row-scaled {row:.3g} (tol {EXAMPLE_MERGED_TOL}), tokens "
+              f"equal; wall {walls[f'serve_adapter {arch}']:.1f} s; shapes "
+              f"held by {held or 'none'}")
+
+    # the ~100M DevFT-vs-FedIT run at the example's defaults
+    tag = "examples federated_100m"
+    fed = _example("torch_federated_finetune_100m")
+    _reset_all_counts()
+    runs = timed("federated_finetune_100m",
+                 lambda: fed.main(["--device", "cuda"]))
+    launches["federated_100m"] = _check_example_training(tag, runs)
+    print(f"[{tag}] shapes held in the kernel phases by "
+          f"{_held_training(tag, runs[0].spec)}")
+    res = {r.spec.method: fed.summary(r) for r in runs}
+    check(sorted(res) == ["devft", "fedit"]
+          and all(len(r["losses"]) == 30 and np.isfinite(r["losses"]).all()
+                  for r in res.values()),
+          f"{tag}: methods {sorted(res)}")
+    with open(os.path.join("experiments", "examples",
+                           "federated_100m_torch.json")) as f:
+        check(json.load(f) == json.loads(json.dumps(res)),
+              f"{tag}: the written JSON differs from the run")
+    d, f_ = res["devft"], res["fedit"]
+    comm_x, flops_x = f_["comm_MB"] / d["comm_MB"], f_["flops"] / d["flops"]
+    check(comm_x > 1 and flops_x > 1,
+          f"{tag}: DevFT saves comm x{comm_x}, flops x{flops_x}")
+    for method, r in res.items():
+        print(f"[{tag}] {method}: wall {r['wall_s']:.1f} s, final eval loss "
+              f"{r['losses'][-1]:.4f}, comm {r['comm_MB']:.1f} MB, flops "
+              f"{r['flops']:.4g}")
+    print(f"[{tag}] DevFT vs FedIT: comm x{comm_x:.2f} less, flops "
+          f"x{flops_x:.2f} less, final loss {d['losses'][-1]:.4f} vs "
+          f"{f_['losses'][-1]:.4f}")
+    print(f"[examples] walls (s): "
+          f"{', '.join(f'{k} {v:.2f}' for k, v in walls.items())}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3699,12 +4029,17 @@ def main() -> int:
     path_steps.update(mesh_phase(granite_run))
     del granite_run
     torch.cuda.empty_cache()
+    examples = examples_phase()
+    torch.cuda.empty_cache()
 
     def cases(rows_, names, yardstick="library_ms"):
         """The new path shapes' numbers for the kernels line."""
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 yardstick, "variant")
         return {n: {k: rows_[n][k] for k in keys} for n in names}
+
+    def example_launches(name):
+        return {ex: n.get(name, 0) for ex, n in examples.items()}
 
     def path_launches(name):
         runs = {f"devft {arch}": n for arch, n in devft_launches.items()}
@@ -3713,6 +4048,7 @@ def main() -> int:
 
     kernels = {"kernels": [
         dict(name="flash_decode", route="cuda",
+             examples_launches=example_launches("flash_decode_bhrd"),
              source="src/repro_torch/kernels/csrc/flash_decode.cu",
              replaces="src/repro/kernels/flash_decode.py:135",
              launches=serve_launches["qwen2-7b"][0], **rows[DECODE_PATH],
@@ -3720,16 +4056,19 @@ def main() -> int:
                              if n[0]},
              cases=cases(rows, (DECODE_MLA, DECODE_MLA_DEVFT,
                                 DECODE_JAMBA_DEVFT, DECODE_WHISPER,
-                                DECODE_VL_DEVFT))),
+                                DECODE_VL_DEVFT, *EXAMPLE_DECODE.values()))),
         dict(name="lora_matmul", route="cuda",
+             examples_launches=example_launches("lora_matmul_fused"),
              source="src/repro_torch/kernels/csrc/lora_matmul.cu",
              replaces="src/repro/kernels/lora_matmul.py:94",
              launches=train_launches["lora_matmul_fused"],
              build_s=build_s["lora_matmul"], **lora_rows[LORA_PATH],
              path_launches=path_launches("lora_matmul_fused"),
              cases=cases(lora_rows, [n for n in lora_rows if n.startswith(
-                 ("jamba", "deepseek", "qwen2-vl", "whisper"))])),
+                 ("jamba", "deepseek", "qwen2-vl", "whisper", "quickstart",
+                  "100M"))])),
         dict(name="flash_attention", route="cuda",
+             examples_launches=example_launches("flash_attention_bshd"),
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:126",
              launches=train_launches["flash_attention_bshd"],
@@ -3737,8 +4076,10 @@ def main() -> int:
              path_launches=path_launches("flash_attention_bshd"),
              cases=cases(flash_rows, (FLASH_JAMBA, FLASH_WHISPER_ENC,
                                       FLASH_WHISPER_DEC, FLASH_VL,
-                                      FLASH_VL_PREFIX))),
+                                      FLASH_VL_PREFIX,
+                                      *EXAMPLE_FLASH.values()))),
         dict(name="moe_expert_ffn", route="cuda",
+             examples_launches=example_launches("moe_expert_ffn_ecd"),
              source="src/repro_torch/kernels/csrc/moe_ffn.cu",
              replaces="src/repro/kernels/moe_ffn.py:92",
              launches=devft_launches["granite-moe-1b-a400m"][
@@ -3748,8 +4089,10 @@ def main() -> int:
                              if n[1]},
              path_launches=path_launches("moe_expert_ffn_ecd"),
              cases=cases(moe_rows, (MOE_EP, MOE_JAMBA, MOE_DEEPSEEK,
-                                    MOE_DECODE_DEEPSEEK), "bmm_ms")),
+                                    MOE_DECODE_DEEPSEEK,
+                                    *EXAMPLE_MOE.values()), "bmm_ms")),
         dict(name="ssd_scan", route="cuda",
+             examples_launches=example_launches("ssd_scan_bshp"),
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:105",
              launches=devft_launches["mamba2-2.7b"]["ssd_scan_bshp"],
