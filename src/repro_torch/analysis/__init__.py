@@ -12,8 +12,10 @@ Contract side (``--contracts``): C001 (every kernel backend against its
 on the card), C002 (every strategy's round program on meta tensors) and
 C003 (the serving step's ``StepContract``).
 
-Runtime side: :func:`guard_syncs` / :func:`no_implicit_syncs`, over
-``torch.cuda.set_sync_debug_mode``. The JAX package's
+Runtime side (``tracing``): the program's spans (:func:`span`, on only
+while a profiler runs) and counters (:func:`counters`,
+:func:`reset_counters`), and :func:`guard_syncs` /
+:func:`no_implicit_syncs`, over ``torch.cuda.set_sync_debug_mode``. The JAX package's
 ``CompileCounter`` has no counterpart: nothing in the port compiles.
 
 Not carried over, having no torch meaning: ``analysis/lowered/`` (XLA
@@ -36,12 +38,14 @@ from repro_torch.analysis.findings import (
     save_baseline,
 )
 from repro_torch.analysis.registry import Rule, all_rules, get_rule, rule
-from repro_torch.analysis.tracing import guard_syncs, no_implicit_syncs
+from repro_torch.analysis.tracing import (counters, guard_syncs,
+                                         no_implicit_syncs, reset_counters,
+                                         span)
 
 __all__ = [
     "DEFAULT_BASELINE", "DEFAULT_TARGET",
     "analyze_file", "analyze_paths", "analyze_source",
     "Finding", "apply_baseline", "load_baseline", "save_baseline",
     "Rule", "all_rules", "get_rule", "rule",
-    "guard_syncs", "no_implicit_syncs",
+    "counters", "guard_syncs", "no_implicit_syncs", "reset_counters", "span",
 ]

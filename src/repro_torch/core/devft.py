@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional
 
+from repro_torch.analysis.tracing import span
 from repro_torch.core.fusion import fuse_stack
 from repro_torch.core.grouping import make_groups
 from repro_torch.core.stages import StageSchedule, allocate_stack_capacities
@@ -75,10 +76,14 @@ def build_submodel(cfg, params: dict, lora: dict, capacity: int, *,
                               "n_layers": sizes[name]}
             continue
         lo = lora.get(name)
-        groups = make_groups(grouping, stack, lo, caps[name], seed=seed)
-        new_blocks[name] = fuse_stack(stack, groups, beta, fusion, seed=seed)
-        if lo is not None:
-            new_lora[name] = fuse_stack(lo, groups, beta, fusion, seed=seed)
+        with span("devft.grouping"):
+            groups = make_groups(grouping, stack, lo, caps[name], seed=seed)
+        with span("devft.fusion"):
+            new_blocks[name] = fuse_stack(stack, groups, beta, fusion,
+                                          seed=seed)
+            if lo is not None:
+                new_lora[name] = fuse_stack(lo, groups, beta, fusion,
+                                            seed=seed)
         plan[name] = {"groups": groups, "n_layers": sizes[name]}
 
     sub_params = dict(params)
@@ -123,7 +128,8 @@ class DevFTController:
 
     def finish_stage(self, global_lora: dict, trained_sub_lora: dict) -> dict:
         assert self._current is not None, "no stage in flight"
-        new = transfer_stage(global_lora, trained_sub_lora,
-                             self._current.plan)
+        with span("devft.transfer"):
+            new = transfer_stage(global_lora, trained_sub_lora,
+                                 self._current.plan)
         self._current = None
         return new

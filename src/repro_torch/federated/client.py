@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.tracing import span
 from repro_torch.interop import tree_leaves, tree_map
 from repro_torch.models.transformer import loss_and_lora_grads
 from repro_torch.optim.adamw import AdamWState, adamw_update, init_adamw
@@ -50,19 +51,21 @@ def make_local_train(cfg, *, remat: bool | str = False, window=None,
         opt = init_adamw(lora)
         losses = []
         for t in range(k_steps):
-            batch = {k: v[t] for k, v in batches.items()}
-            _total, metrics, grads = loss_and_lora_grads(
-                cfg, params, lora, batch, window=window, remat=remat,
-                moe_path=moe_path, mesh=mesh)
-            new_lora, new_opt = adamw_update(grads, opt, lora, lr,
-                                             weight_decay=0.0)
-            if mask is not None:
-                keep = mask[t] > 0
-                new_lora = _keep(keep, new_lora, lora)
-                new_opt = AdamWState(
-                    count=torch.where(keep, new_opt.count, opt.count),
-                    mu=_keep(keep, new_opt.mu, opt.mu),
-                    nu=_keep(keep, new_opt.nu, opt.nu))
+            with span("client.step"):
+                batch = {k: v[t] for k, v in batches.items()}
+                _total, metrics, grads = loss_and_lora_grads(
+                    cfg, params, lora, batch, window=window, remat=remat,
+                    moe_path=moe_path, mesh=mesh)
+                with span("step.adamw"):
+                    new_lora, new_opt = adamw_update(grads, opt, lora, lr,
+                                                     weight_decay=0.0)
+                if mask is not None:
+                    keep = mask[t] > 0
+                    new_lora = _keep(keep, new_lora, lora)
+                    new_opt = AdamWState(
+                        count=torch.where(keep, new_opt.count, opt.count),
+                        mu=_keep(keep, new_opt.mu, opt.mu),
+                        nu=_keep(keep, new_opt.nu, opt.nu))
             lora, opt = new_lora, new_opt
             losses.append(metrics["loss"])
         if mask is None:

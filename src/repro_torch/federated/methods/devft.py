@@ -11,6 +11,7 @@ engine; the strategy adapts it to the generic round loop.
 """
 from __future__ import annotations
 
+from repro_torch.analysis.tracing import span
 from repro_torch.core import DevFTController
 from repro_torch.federated.methods.base import AggregateContract, StagedStrategy
 from repro_torch.federated.methods.registry import register
@@ -36,11 +37,12 @@ class DevFT(StagedStrategy):
 
     def on_stage(self, state, stage):
         ctl = state["ctl"]
-        if state["sub"] is not None:
-            state["lora"] = ctl.finish_stage(state["lora"],
-                                             state["sub"].lora)
-        state["sub"] = ctl.start_stage(state["params"], state["lora"],
-                                       stage)
+        with span("devft.stage_entry"):
+            if state["sub"] is not None:
+                state["lora"] = ctl.finish_stage(state["lora"],
+                                                 state["sub"].lora)
+            state["sub"] = ctl.start_stage(state["params"], state["lora"],
+                                           stage)
 
     def client_lr(self, stage):
         # paper App. B: LR rises x`lr_stage_factor` per stage to fed.lr

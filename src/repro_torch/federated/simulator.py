@@ -62,6 +62,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
+from repro_torch.analysis.tracing import span
 from repro_torch.data.synthetic import (
     FederatedData,
     client_round_batches,
@@ -150,19 +151,22 @@ def make_round_program(strategy, run_state, sub_cfg, n_sample, mesh=None):
     def round_fn(params, lora, batches, lr, masks=None, weights=None):
         view = lora if mesh is None else shd.gathered(lora)
         loras = []
-        for c in range(len(batches["labels"])):
-            new, _ = local(params, view, {k: v[c] for k, v in
-                                          batches.items()}, lr,
-                           None if masks is None else masks[c])
-            loras.append(new)
-        stacked = tree_map(lambda *xs: torch.stack(xs), *loras)
-        if mesh is not None:
-            spec = client_spec(mesh, n_sample)
-            stacked = tree_map(lambda t: shd.gather_part(mesh, spec, t),
-                               stacked)
-        new_lora, aux["up"] = strategy.aggregate(
-            run_state, LocalSpec(sub_cfg, params, view), stacked, n_sample,
-            weights=weights)
+        with span("round.local"):
+            for c in range(len(batches["labels"])):
+                with span("client.train"):
+                    new, _ = local(params, view, {k: v[c] for k, v in
+                                                  batches.items()}, lr,
+                                   None if masks is None else masks[c])
+                loras.append(new)
+        with span("round.aggregate"):
+            stacked = tree_map(lambda *xs: torch.stack(xs), *loras)
+            if mesh is not None:
+                spec = client_spec(mesh, n_sample)
+                stacked = tree_map(
+                    lambda t: shd.gather_part(mesh, spec, t), stacked)
+            new_lora, aux["up"] = strategy.aggregate(
+                run_state, LocalSpec(sub_cfg, params, view), stacked,
+                n_sample, weights=weights)
         if mesh is not None:
             new_lora = shd.place(new_lora,
                                  shd.params_shardings(mesh, new_lora))
@@ -274,8 +278,9 @@ class FederatedRunner:
         return float(m["loss"]), float(m["acc"])
 
     def _to_device(self, batches):
-        return {k: torch.as_tensor(v).to(self.device)
-                for k, v in batches.items()}
+        with span("round.to_device"):
+            return {k: torch.as_tensor(v).to(self.device)
+                    for k, v in batches.items()}
 
     # ---- mesh placement -------------------------------------------------
     def _place_model(self, spec):
@@ -345,7 +350,8 @@ class FederatedRunner:
         ev_loss = ev_acc = None          # carried forward between evals
         sim_time = 0.0                   # cumulative virtual wall-clock
         for rnd, (stage, capn) in enumerate(rounds):
-            clients, batches = self._host_batches(rnd)
+            with span("round.batches"):
+                clients, batches = self._host_batches(rnd)
             if stage != stage_prev:
                 strat.on_stage(state, stage)
                 stage_prev = stage
@@ -374,29 +380,33 @@ class FederatedRunner:
             new_lora = round_fn(params_p, lora_p, dev_batches, lr, *hetero)
             if self.mesh is not None:
                 new_lora = shd.gathered(new_lora)
-            new_lora = strat.post_round(state, new_lora)
+            with span("round.post_round"):
+                new_lora = strat.post_round(state, new_lora)
 
             # ---- eval (every eval_every rounds; last round always) ----
             if rnd % fed.eval_every == 0 or rnd == n_rounds - 1:
-                ev_loss, ev_acc = self._eval(spec.cfg, params_p,
-                                             new_lora, eval_batch)
+                with span("round.eval"):
+                    ev_loss, ev_acc = self._eval(spec.cfg, params_p,
+                                                 new_lora, eval_batch)
 
-            n_kept = int(plan.kept.sum())
-            logs.append(RoundLog(
-                round=rnd, stage=stage, capacity=capn,
-                eval_loss=ev_loss, eval_acc=ev_acc,
-                # dropped stragglers never upload; every sampled client
-                # still downloaded the round's adapters
-                comm_bytes_up=strat.uplink_bytes(aux["up"], n_kept),
-                comm_bytes_down=strat.downlink_bytes(new_lora, n_sample),
-                flops=_round_flops(spec.params, plan.total_steps,
-                                   fed.local_batch, fed.seq),
-                memory_bytes=_memory_bytes(spec.params, new_lora,
-                                           fed.local_batch, fed.seq,
-                                           spec.cfg),
-                sim_time_s=sim_time,
-                n_dropped=plan.n_dropped,
-            ))
+            with span("round.books"):
+                n_kept = int(plan.kept.sum())
+                logs.append(RoundLog(
+                    round=rnd, stage=stage, capacity=capn,
+                    eval_loss=ev_loss, eval_acc=ev_acc,
+                    # dropped stragglers never upload; every sampled
+                    # client still downloaded the round's adapters
+                    comm_bytes_up=strat.uplink_bytes(aux["up"], n_kept),
+                    comm_bytes_down=strat.downlink_bytes(new_lora,
+                                                         n_sample),
+                    flops=_round_flops(spec.params, plan.total_steps,
+                                       fed.local_batch, fed.seq),
+                    memory_bytes=_memory_bytes(spec.params, new_lora,
+                                               fed.local_batch, fed.seq,
+                                               spec.cfg),
+                    sim_time_s=sim_time,
+                    n_dropped=plan.n_dropped,
+                ))
             if progress:
                 progress(logs[-1])
 

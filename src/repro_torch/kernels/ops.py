@@ -10,7 +10,9 @@ or raises — there is no fallback to the plain version on the card.
 ``torch.autograd.Function`` (the JAX
 package's ``custom_vjp``): the forward runs the kernel, the backward is
 the gradient of the plain version on the saved inputs. The JAX package
-has no backward kernel for any of them, so none has one here.
+has no backward kernel for any of them, so none has one here. Under a
+profiler the forward's kernel call is the span ``kernel.<name>`` and the
+backward ``kernel.<name>.backward`` (``repro_torch.analysis.tracing``).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.analysis.tracing import span
 from repro_torch.kernels import dispatch, ref
 
 
@@ -37,14 +40,15 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, scale, backend):
         ctx.save_for_backward(q, k, v)
         ctx.kw = dict(causal=causal, window=window, scale=scale)
-        return dispatch.get_kernel("flash_attention", backend, q.device)(
-            q, k, v, **ctx.kw)
+        with span("kernel.flash_attention"):
+            return dispatch.get_kernel("flash_attention", backend,
+                                       q.device)(q, k, v, **ctx.kw)
 
     @staticmethod
     def backward(ctx, grad_out):
         """Autograd through ``attention_bshd_ref`` on the saved inputs."""
         need = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
+        with span("kernel.flash_attention.backward"), torch.enable_grad():
             leaves = [t.detach().requires_grad_(n)
                       for t, n in zip(ctx.saved_tensors, need)]
             out = ref.attention_bshd_ref(*leaves, **ctx.kw)
@@ -68,33 +72,35 @@ class _LoraMatmul(torch.autograd.Function):
     def forward(ctx, x, w, a, b, scaling, backend):
         ctx.save_for_backward(x, w, a, b)
         ctx.scaling = scaling
-        return dispatch.get_kernel("lora_matmul", backend, x.device)(
-            x, w, a, b, scaling=scaling)
+        with span("kernel.lora_matmul"):
+            return dispatch.get_kernel("lora_matmul", backend, x.device)(
+                x, w, a, b, scaling=scaling)
 
     @staticmethod
     def backward(ctx, grad_out):
         """The products autograd through ``lora_matmul_ref`` runs, in f32,
         for the inputs that need a gradient; the forward's x @ W, which no
         gradient needs, is not recomputed."""
-        x, w, a, b = ctx.saved_tensors
-        need_x, need_w, need_a, need_b = ctx.needs_input_grad[:4]
-        g = grad_out.reshape(-1, w.shape[1]).float()
-        a32, b32 = a.float(), b.float()
-        g_lo = g * ctx.scaling                          # (M, N)
-        dx = dw = da = db = None
-        if need_w or need_a or need_b:
-            x2 = x.reshape(-1, x.shape[-1]).float()
-        if need_x or need_a:
-            g_xa = g_lo @ b32.t()                       # (M, r)
-        if need_x:
-            dx = (g @ w.float().t() + g_xa @ a32.t()).to(x.dtype)
-            dx = dx.reshape(x.shape)
-        if need_w:
-            dw = (x2.t() @ g).to(w.dtype)
-        if need_a:
-            da = (x2.t() @ g_xa).to(a.dtype)
-        if need_b:
-            db = ((x2 @ a32).t() @ g_lo).to(b.dtype)
+        with span("kernel.lora_matmul.backward"):
+            x, w, a, b = ctx.saved_tensors
+            need_x, need_w, need_a, need_b = ctx.needs_input_grad[:4]
+            g = grad_out.reshape(-1, w.shape[1]).float()
+            a32, b32 = a.float(), b.float()
+            g_lo = g * ctx.scaling                      # (M, N)
+            dx = dw = da = db = None
+            if need_w or need_a or need_b:
+                x2 = x.reshape(-1, x.shape[-1]).float()
+            if need_x or need_a:
+                g_xa = g_lo @ b32.t()                   # (M, r)
+            if need_x:
+                dx = (g @ w.float().t() + g_xa @ a32.t()).to(x.dtype)
+                dx = dx.reshape(x.shape)
+            if need_w:
+                dw = (x2.t() @ g).to(w.dtype)
+            if need_a:
+                da = (x2.t() @ g_xa).to(a.dtype)
+            if need_b:
+                db = ((x2 @ a32).t() @ g_lo).to(b.dtype)
         return dx, dw, da, db, None, None
 
 
@@ -111,8 +117,10 @@ class _MoeExpertFfn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, buf, wg, wu, wd, fill, backend):
         ctx.save_for_backward(buf, wg, wu, wd, fill)
-        return dispatch.get_kernel("moe_expert_ffn", backend, buf.device)(
-            buf, wg, wu, wd, fill=fill)
+        with span("kernel.moe_expert_ffn"):
+            return dispatch.get_kernel("moe_expert_ffn", backend,
+                                       buf.device)(buf, wg, wu, wd,
+                                                   fill=fill)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -124,16 +132,18 @@ class _MoeExpertFfn(torch.autograd.Function):
         instead of a mask in the recompute and another in its backward."""
         *saved, fill = ctx.saved_tensors
         need = ctx.needs_input_grad[:4]
-        if fill is not None:
-            rows = torch.arange(grad_out.shape[1], device=grad_out.device)
-            grad_out = torch.where((rows[None, :] < fill[:, None])[..., None],
-                                   grad_out, 0)
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(n)
-                      for t, n in zip(saved, need)]
-            out = ref.moe_expert_ffn_ref(*leaves)
-            grads = iter(torch.autograd.grad(
-                out, [t for t, n in zip(leaves, need) if n], grad_out))
+        with span("kernel.moe_expert_ffn.backward"):
+            if fill is not None:
+                rows = torch.arange(grad_out.shape[1],
+                                    device=grad_out.device)
+                grad_out = torch.where(
+                    (rows[None, :] < fill[:, None])[..., None], grad_out, 0)
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_(n)
+                          for t, n in zip(saved, need)]
+                out = ref.moe_expert_ffn_ref(*leaves)
+                grads = iter(torch.autograd.grad(
+                    out, [t for t, n in zip(leaves, need) if n], grad_out))
         return (*(next(grads) if n else None for n in need), None, None)
 
 
@@ -152,8 +162,9 @@ class _SsdScan(torch.autograd.Function):
     def forward(ctx, x, dt, a, b, c, d, chunk, backend):
         ctx.save_for_backward(x, dt, a, b, c, d)
         ctx.chunk = chunk
-        return dispatch.get_kernel("ssd_scan", backend, x.device)(
-            x, dt, a, b, c, d, chunk=chunk)
+        with span("kernel.ssd_scan"):
+            return dispatch.get_kernel("ssd_scan", backend, x.device)(
+                x, dt, a, b, c, d, chunk=chunk)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -161,7 +172,7 @@ class _SsdScan(torch.autograd.Function):
         chunk on the saved inputs (the JAX package's ``_ssd_bwd``); its
         intermediates live only inside this call."""
         need = ctx.needs_input_grad[:6]
-        with torch.enable_grad():
+        with span("kernel.ssd_scan.backward"), torch.enable_grad():
             leaves = [t.detach().requires_grad_(n)
                       for t, n in zip(ctx.saved_tensors, need)]
             out = ref.ssd_scan_bshp_chunked_ref(*leaves, chunk=ctx.chunk)

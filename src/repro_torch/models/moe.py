@@ -41,6 +41,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch.analysis.tracing import count_moe, span
 from repro_torch.kernels import dispatch, ops, ref
 from repro_torch.models.layers import _randn, init_mlp, mlp, model_backend
 
@@ -125,31 +126,38 @@ def _run_experts(cfg, x, w, eidx, pos, keep, fill, cap, wg, wu, wd):
     SwiGLU and combine back weighted by w (T, k). Returns (T, d)."""
     t, d = x.shape
     e, k = wg.shape[0], w.shape[1]
-    # kept slots own their row; dropped slots write zeros to the spare
-    # row E*C. Slot s holds token s // k: an expand, whose backward is a
-    # sum over k (an index's backward would be a sort-based scatter)
-    rows = torch.where(keep, eidx * cap + pos, torch.full_like(pos, e * cap))
-    tokens = x[:, None, :].expand(t, k, d).reshape(t * k, d)
-    vals = torch.where(keep[:, None], tokens, 0)
-    flat = x.new_zeros((e * cap + 1, d)).index_put((rows,), vals)
-    buf = flat[:e * cap].reshape(e, cap, d)
+    with span("moe.dispatch"):
+        # kept slots own their row; dropped slots write zeros to the
+        # spare row E*C. Slot s holds token s // k: an expand, whose
+        # backward is a sum over k (an index's backward would be a
+        # sort-based scatter)
+        rows = torch.where(keep, eidx * cap + pos,
+                           torch.full_like(pos, e * cap))
+        tokens = x[:, None, :].expand(t, k, d).reshape(t * k, d)
+        vals = torch.where(keep[:, None], tokens, 0)
+        flat = x.new_zeros((e * cap + 1, d)).index_put((rows,), vals)
+        buf = flat[:e * cap].reshape(e, cap, d)
     # expert e's rows past fill[e] are zero: the kernel skips their tiles
     backend = model_backend(cfg)
-    if dispatch.use_kernel(backend, x.device):
-        out = ops.moe_expert_ffn(buf, wg, wu, wd, fill=fill, backend=backend)
-    else:
-        out = expert_ffn_reference(buf, wg, wu, wd, fill=fill)
-    # combine back: the k contributions of each token, in slot order.
-    # index_select's backward adds into unique rows but for the dropped
-    # slots' zeros, so its result does not depend on the order of adds
-    safe = torch.where(keep, eidx * cap + pos, torch.zeros_like(pos))
-    gathered = torch.where(keep[:, None], torch.index_select(
-        out.reshape(e * cap, d), 0, safe), 0)
-    scale = w.reshape(-1)[:, None].to(x.dtype)
-    contrib = (gathered * scale).reshape(t, k, d)
-    y = contrib[:, 0]
-    for j in range(1, k):
-        y = y + contrib[:, j]
+    with span("moe.experts"):
+        if dispatch.use_kernel(backend, x.device):
+            out = ops.moe_expert_ffn(buf, wg, wu, wd, fill=fill,
+                                     backend=backend)
+        else:
+            out = expert_ffn_reference(buf, wg, wu, wd, fill=fill)
+    with span("moe.combine"):
+        # combine back: the k contributions of each token, in slot order.
+        # index_select's backward adds into unique rows but for the
+        # dropped slots' zeros, so its result does not depend on the
+        # order of adds
+        safe = torch.where(keep, eidx * cap + pos, torch.zeros_like(pos))
+        gathered = torch.where(keep[:, None], torch.index_select(
+            out.reshape(e * cap, d), 0, safe), 0)
+        scale = w.reshape(-1)[:, None].to(x.dtype)
+        contrib = (gathered * scale).reshape(t, k, d)
+        y = contrib[:, 0]
+        for j in range(1, k):
+            y = y + contrib[:, j]
     return y
 
 
@@ -167,9 +175,12 @@ def moe_block(params: dict, cfg, x: torch.Tensor, *,
     m = cfg.moe
     t = x.shape[0]
     cap = capacity or _capacity(cfg, t)
-    w, idx, aux = router_topk(params, cfg, x)                     # (T,k)
+    with span("moe.route"):
+        w, idx, aux = router_topk(params, cfg, x)                 # (T,k)
     flat_idx = idx.reshape(-1)                                    # (T*k,)
-    pos, keep, fill = _dispatch_indices(flat_idx, m.n_experts, cap)
+    with span("moe.dispatch"):
+        pos, keep, fill = _dispatch_indices(flat_idx, m.n_experts, cap)
+    count_moe(keep)
     y = _run_experts(cfg, x, w, flat_idx, pos, keep, fill, cap,
                      params["wg"], params["wu"], params["wd"])
     if "shared" in params:
@@ -245,12 +256,15 @@ def moe_block_ep(params: dict, cfg, x: torch.Tensor, *, mesh,
     t_l = x.shape[0]
     cap_l = max(8, -(-t_l * m.top_k // m.n_experts) * 2)
 
-    w, idx, aux = router_topk(params, cfg, x)
+    with span("moe.route"):
+        w, idx, aux = router_topk(params, cfg, x)
     flat_idx = idx.reshape(-1)
-    local = (flat_idx >= lo) & (flat_idx < lo + e_local)
-    loc_idx = torch.where(local, flat_idx - lo, e_local)  # e_local: drop bin
-    pos, keep, fill = _dispatch_indices(loc_idx, e_local + 1, cap_l)
-    keep = keep & local
+    with span("moe.dispatch"):
+        local = (flat_idx >= lo) & (flat_idx < lo + e_local)
+        loc_idx = torch.where(local, flat_idx - lo, e_local)  # drop bin
+        pos, keep, fill = _dispatch_indices(loc_idx, e_local + 1, cap_l)
+        keep = keep & local
+    count_moe(keep, local)
     xs, ws = x, w
     if tp > 1:
         group = mesh.get_group(tp_axis)

@@ -69,6 +69,7 @@ from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.analysis.tracing import span
 from repro_torch.interop import tree_leaves, tree_map, tree_paths
 from repro_torch.models import layers as Lyr
 from repro_torch.models import mamba2 as Mb
@@ -544,9 +545,12 @@ def loss_and_lora_grads(cfg, params, lora, batch, *, window=None,
     paths = tree_paths(lo)
     leaves = [t for _, t in paths]
     with torch.enable_grad():
-        total, metrics = loss_fn(cfg, params, lo, batch, window=window,
-                                 remat=remat, moe_path=moe_path, mesh=mesh)
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        with span("step.forward"):
+            total, metrics = loss_fn(cfg, params, lo, batch, window=window,
+                                     remat=remat, moe_path=moe_path,
+                                     mesh=mesh)
+        with span("step.backward"):
+            grads = torch.autograd.grad(total, leaves, allow_unused=True)
     unreached = [path for (path, t), g in zip(paths, grads)
                  if g is None and t.shape[0] > 0]
     if unreached:
