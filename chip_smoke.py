@@ -835,6 +835,187 @@ def _check_lora_variants(lora_matmul_fused, tag):
           f"kernel, none padded")
 
 
+def _bf16_ulps(got, want):
+    """Distance in bf16 steps between two bf16 tensors, elementwise (the
+    bit patterns in sign-magnitude order, so +0 and -0 are one point)."""
+    def key(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (key(got) - key(want)).abs()
+
+
+#: the input gradient against the plain f32 one (``ops``'s plain route):
+#: the share of dx's bf16 elements that must be bit-equal; the rest may
+#: lie one bf16 step away where the sum does not cancel (|dx| at least
+#: 2**-8 of its row's largest), and nowhere more than a step of the row's
+#: largest, 2**-7 of it at most (the f32 sums differ in order only, and
+#: where they cancel that is more than a step of the tiny result); and the
+#: limit on g_xa's row-scaled error and on dA's over its largest |value|
+#: (f32 sums in another order, depth up to N = 32768 and M = 8192)
+LORA_BWD_EQUAL = 0.99
+LORA_BWD_F32_TOL = 1e-5
+#: the scaling of the backward cases: not a power of two, so that s * g
+#: and the products of g_xa are rounded as in the cells
+LORA_BWD_SCALING = 0.7
+#: the backward cases on the benchmark's cells (M = 16 x 512 tokens)
+LORA_BWD_CELLS = ("jamba in_proj M8192 K4096 N16544 r32",
+                  "jamba out_proj M8192 K8192 N4096 r32",
+                  "granite wq M8192 K1024 N1024 r32",
+                  "granite wv M8192 K1024 N512 r32")
+
+
+def _plain_dx(g2, w, a, b, s):
+    """dx and g_xa as ``ops``'s plain route computes them (f32 products of
+    f32 copies, one rounding)."""
+    g = g2.float()
+    g_xa = (g * s) @ b.float().t()
+    return (g @ w.float().t() + g_xa @ a.float().t()).to(g2.dtype), g_xa
+
+
+def lora_bwd_phase(seed: int = 0):
+    """The input gradient's kernel (``lora_matmul_bwd``: pre-pass + main
+    pass) against the plain f32 products at the cells' shapes, the other
+    path shapes and ragged ones, B random and s = 0.7: dx bit-equal on at
+    least ``LORA_BWD_EQUAL`` of its elements and within one bf16 step on
+    the rest; g_xa and dA within f32 summation order. On the cells'
+    shapes: the call's time, the pre-pass's, the plain f32 dx's and
+    cuBLAS's bf16 ``g @ w.t()`` (yardstick), beside
+    the bound (2·M·N·K + 2·M·r·(N + K) operations at the bf16 peak)."""
+    from repro_torch.kernels.lora_matmul import (lora_matmul_bwd,
+                                                 pad_bwd_operands, plan_bwd,
+                                                 prepass_bwd)
+
+    dev, bf16, s = "cuda", torch.bfloat16, LORA_BWD_SCALING
+    rng = np.random.default_rng(np.random.SeedSequence((seed, 32)))
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    cases = [  # name, M, K, N, r
+        (LORA_BWD_CELLS[0], 8192, 4096, 16544, 32),
+        (LORA_BWD_CELLS[1], 8192, 8192, 4096, 32),
+        (LORA_BWD_CELLS[2], 8192, 1024, 1024, 32),
+        (LORA_BWD_CELLS[3], 8192, 1024, 512, 32),
+        ("path M4096 K4096 N4096 r32", 4096, 4096, 4096, 32),
+        ("mamba in_proj M4096 K2560 N10576 r32", 4096, 2560, 10576, 32),
+        ("mamba out_proj M4096 K5120 N2560 r32", 4096, 5120, 2560, 32),
+        ("deepseek wq_b M4096 K1536 N24576 r32", 4096, 1536, 24576, 32),
+        ("deepseek wkv_b M4096 K512 N32768 r32", 4096, 512, 32768, 32),
+        ("qwen2-vl wq M4096 K3584 N3584 r32", 4096, 3584, 3584, 32),
+        ("whisper wq/wv M1792 K384 N384 r32", 1792, 384, 384, 32),
+        ("ragged M333 K200 N136 r8", 333, 200, 136, 8),
+        ("ragged M333 K1001 N777 r96", 333, 1001, 777, 96),
+        ("rank M4096 K4096 N4096 r128", 4096, 4096, 4096, 128),
+        ("rank M1000 K1000 N1000 r2", 1000, 1000, 1000, 2),
+    ]
+    rows = {}
+    for name, m, k, n, r in cases:
+        def rand(*shape, std=1.0):
+            t = rng.standard_normal(shape, dtype=np.float32) * std
+            return torch.from_numpy(t).to(dev).to(bf16)
+        g = rand(m, n, std=1e-3)
+        w = rand(k, n, std=k ** -0.5)
+        a = rand(k, r, std=k ** -0.5)
+        b = rand(r, n, std=r ** -0.5)
+        x2 = rand(m, k)
+        p = plan_bwd(m, k, n, r, bf16)
+        before = lora_matmul_bwd.launches
+        dx, g_xa = lora_matmul_bwd(g, w, a, b, scaling=s)
+        want, want_xa = _plain_dx(g, w, a, b, s)
+        torch.cuda.synchronize()
+        check(lora_matmul_bwd.launches == before + 1,
+              f"lora bwd {name}: launches {lora_matmul_bwd.launches}")
+        check(dx.dtype == bf16 and dx.shape == (m, k),
+              f"lora bwd {name}: dx {dx.dtype}{tuple(dx.shape)}")
+        ulps = _bf16_ulps(dx, want)
+        equal = float((ulps == 0).float().mean())
+        size = want.float().abs().amax(-1, keepdim=True)
+        whole = want.float().abs() >= size * 2.0 ** -8
+        whole_ulps = int(ulps[whole].max())
+        _, dx_err = _row_scaled(dx, want)
+        _, xa_err = _row_scaled(g_xa, want_xa)
+        x32 = x2.float()
+        # dA over its largest |value| (a row of dA has only r elements)
+        da, da_want = x32.t() @ g_xa, x32.t() @ want_xa
+        da_err = float((da - da_want).abs().max() / da_want.abs().max())
+        del da, da_want
+        # g_xa rounded once to bf16 (what the split avoids): the share of
+        # dx it would leave bit-equal
+        once = (g.float() @ w.float().t()
+                + g_xa.to(bf16).float() @ a.float().t()).to(bf16)
+        equal_once = float((_bf16_ulps(once, want) == 0).float().mean())
+        del once, x32, want_xa, size, whole
+        row = dict(variant=p.variant, padded=p.padded, block_n=p.block_n,
+                   equal=equal, max_ulps=whole_ulps, dx_err=dx_err,
+                   g_xa_err=xa_err, da_err=da_err,
+                   equal_g_xa_once=equal_once)
+        line = (f"[kernel] lora_matmul_bwd {name}: {p.variant}, block_n "
+                f"{p.block_n}, {'padded' if p.padded else 'not padded'}; dx "
+                f"bit-equal {100 * equal:.3f}% (tol {100 * LORA_BWD_EQUAL:g}"
+                f"%), max {whole_ulps} bf16 step where |dx| >= 2^-8 of its "
+                f"row's largest, row-scaled {dx_err:.3g} (tol 2^-7); g_xa "
+                f"row-scaled {xa_err:.3g}, dA scaled {da_err:.3g} (tol "
+                f"{LORA_BWD_F32_TOL:g}); with g_xa rounded once to bf16 "
+                f"{100 * equal_once:.2f}% bit-equal")
+        print(line)
+        check(equal >= LORA_BWD_EQUAL and whole_ulps <= 1
+              and dx_err <= 2.0 ** -7,
+              f"lora bwd {name}: {equal:.5f} of dx bit-equal, "
+              f"{whole_ulps} bf16 steps at most where the sum does not "
+              f"cancel, row-scaled {dx_err}")
+        check(xa_err <= LORA_BWD_F32_TOL and da_err <= LORA_BWD_F32_TOL,
+              f"lora bwd {name}: g_xa row-scaled {xa_err}, dA {da_err}")
+        on_path = not name.startswith(("ragged", "rank"))
+        check(p.variant == "wgmma" and not (on_path and p.padded),
+              f"lora bwd {name}: plan {p}")
+        line = f"[kernel] lora_matmul_bwd {name}: timed"
+        if name in LORA_BWD_CELLS:
+            flops = 2 * m * n * k + 2 * m * r * (n + k)
+            bytes_moved = 2 * (m * n + k * n + k * r + r * n + m * k) \
+                + 4 * m * r
+            bound_ms, bound_by = _bound(bytes_moved, flops, BF16_FLOPS)
+            ms = time_cuda(lambda: lora_matmul_bwd(g, w, a, b, scaling=s),
+                           flush)
+            gp, _, _, bp = pad_bwd_operands(p, g, w, a, b)
+            prepass_ms = time_cuda(lambda: prepass_bwd(p, gp, bp, s), flush)
+            plain_ms = time_cuda(lambda: _plain_dx(g, w, a, b, s), flush)
+            library_ms = time_cuda(lambda: torch.matmul(g, w.t()), flush)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(CUDA_ITERS):
+                lora_matmul_bwd(g, w, a, b, scaling=s)
+            host_us = (time.perf_counter() - t0) / CUDA_ITERS * 1e6
+            torch.cuda.synchronize()
+            row.update(ms=ms, prepass_ms=prepass_ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=bound_ms,
+                       bound_by=bound_by)
+            line += (f" | call {ms * 1e3:.1f} us (pre-pass "
+                     f"{prepass_ms * 1e3:.1f} us), plain f32 dx "
+                     f"{plain_ms * 1e3:.1f} us, g @ w.t() alone (matmul, "
+                     f"bf16) {library_ms * 1e3:.1f} us, bound "
+                     f"{bound_ms * 1e3:.2f} us ({bound_by}; "
+                     f"{flops / 1e9:.2f} GFLOP; {100 * bound_ms / ms:.1f}% "
+                     f"of bound, {flops / ms / 1e9:.1f} TFLOP/s); host "
+                     f"{host_us:.1f} us per call")
+            print(line)
+        rows[name] = row
+        del g, w, a, b, x2, dx, g_xa, want
+    del flush
+    return rows
+
+
+def _check_lora_bwd(tag, want):
+    """Every lora_matmul backward since the last ``reset_counts`` took the
+    input-gradient kernel (``want`` calls: one a training forward), on
+    the wgmma variant, unpadded; none ran the plain products."""
+    from repro_torch.kernels.lora_matmul import lora_matmul_bwd as fn
+    check(fn.launches == want and fn.plain == 0
+          and dict(fn.variants) == {"wgmma": want} and fn.padded == 0,
+          f"{tag}: lora_matmul_bwd launches {fn.launches} (want {want}), "
+          f"plain {fn.plain}, variants {dict(fn.variants)}, padded "
+          f"{fn.padded}")
+    print(f"[{tag}] lora_matmul_bwd: all {want} backward calls (one a "
+          f"training forward's lora_matmul) on the wgmma kernel, none "
+          f"padded, none plain")
+
+
 #: flash_attention limits on the row-scaled error. f32: 1e-4, as the
 #: decode kernel (summation order of the online softmax only). bf16:
 #: 2**-5: the kernel rounds the probabilities to bf16 for the PV product
@@ -2310,13 +2491,18 @@ def devft_phase(arch, want_caps, per_kind, want_forward_layers,
     # eval per round, one round per stage; the backward and DGLG/DBLF
     # launch none
     want = {fn.__name__: 0 for fn in kernels}
-    forwards_layers = 0
+    forwards_layers = want_bwd = 0
     for st in stages:
         for name, n in st["sizes"].items():
             forwards_layers += (n_clients * k + 1) * n
             for fn_name, per in per_kind.get(kinds[name], {}).items():
                 want[fn_name] += (n_clients * k + 1) * n * per
+            # the backward runs once a training forward's lora_matmul
+            # (not the eval's)
+            want_bwd += n_clients * k * n * per_kind.get(
+                kinds[name], {}).get("lora_matmul_fused", 0)
     check(launches == want, f"{tag}: launches {launches}, want {want}")
+    _check_lora_bwd(tag, want_bwd)
     _check_lora_variants(kernels[1], tag)
     _check_flash_variant(kernels[2], tag)
     _check_ssd_variant(kernels[4], tag)
@@ -3713,13 +3899,14 @@ def _check_example_training(tag, runs):
     ``lora_matmul`` twice a layer (W_q, W_v) and ``flash_attention``
     once, all on their ``fma_f32`` variants unpadded, nothing else; then
     every count goes back to 0."""
-    layer_forwards = 0
+    layer_forwards = train_forwards = 0
     for res in runs:
         spec, last = res.spec, len(res.logs) - 1
         clients = max(1, int(spec.n_clients * spec.sample_frac))
         for log in res.logs:
             evals = int(log.round % spec.eval_every == 0 or log.round == last)
             layer_forwards += (clients * spec.k_local + evals) * log.capacity
+            train_forwards += clients * spec.k_local * log.capacity
     kernels = _path_kernels()
     launches = {fn.__name__: fn.launches for fn in kernels}
     want = {name: 0 for name in launches}
@@ -3732,8 +3919,14 @@ def _check_example_training(tag, runs):
           f"{lm.padded}")
     check(dict(fa.variants) == {"fma_f32": fa.launches},
           f"{tag}: flash_attention variants {dict(fa.variants)}")
+    from repro_torch.kernels.lora_matmul import lora_matmul_bwd as bwd
+    check(bwd.launches == 0 and bwd.plain == 2 * train_forwards,
+          f"{tag}: lora_matmul_bwd launches {bwd.launches}, plain "
+          f"{bwd.plain} (want 0 and {2 * train_forwards}: f32 keeps the "
+          f"plain backward)")
     print(f"[{tag}] launches {launches} = {layer_forwards} layer-forwards "
-          f"(derived from the RoundLogs), all on fma_f32, none padded")
+          f"(derived from the RoundLogs), all on fma_f32, none padded; "
+          f"{bwd.plain} lora_matmul backward calls, all plain f32")
     _reset_all_counts()
     return launches
 
@@ -3986,6 +4179,7 @@ def main() -> int:
     name, smi, build_s = device_phase(build)
     rows = kernel_phase(flash_decode_bhrd, ref.flash_decode_ref)
     lora_rows = lora_phase(lora_matmul_fused, ref.lora_matmul_ref)
+    lora_bwd_rows = lora_bwd_phase()
     flash_rows = attention_phase(flash_attention_bshd,
                                  ref.attention_bshd_ref)
     moe_rows = moe_phase(moe_expert_ffn_ecd, ref.moe_expert_ffn_ref)
@@ -4066,7 +4260,8 @@ def main() -> int:
              path_launches=path_launches("lora_matmul_fused"),
              cases=cases(lora_rows, [n for n in lora_rows if n.startswith(
                  ("jamba", "deepseek", "qwen2-vl", "whisper", "quickstart",
-                  "100M"))])),
+                  "100M"))]),
+             backward={n: lora_bwd_rows[n] for n in LORA_BWD_CELLS}),
         dict(name="flash_attention", route="cuda",
              examples_launches=example_launches("flash_attention_bshd"),
              source="src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -30,11 +30,13 @@ The sites, each under ``repro_torch/``:
 
 Counters. :func:`counters` gathers the kernel wrappers' own call counts
 (``<kernel>.launches``, ``.variants``, ``.padded`` and ``.filled`` where
-the wrapper keeps them; ``reset_counts`` of each kernel module zeroes
-them) and the MoE slot counts ``moe.routed_slots`` and
-``moe.dropped_slots``: device int64 accumulators that ``moe_block`` and
-``moe_block_ep`` bump (:func:`count_moe`) only while spans are on, read
-with one device-to-host copy by :func:`counters`. With spans off they
+the wrapper keeps them, and ``lora_matmul_bwd.plain``, the backward calls
+on the card that did not take the input-gradient kernel; ``reset_counts``
+of each kernel module zeroes them) and the MoE slot counts
+``moe.routed_slots`` and ``moe.dropped_slots``: device int64
+accumulators that ``moe_block`` and ``moe_block_ep`` bump
+(:func:`count_moe`) only while spans are on, read with one
+device-to-host copy by :func:`counters`. With spans off they
 allocate and launch nothing. :func:`reset_counters` zeroes both kinds.
 
 Sync guards. A synchronizing CUDA call — ``.item()``, ``.cpu()``, a
@@ -76,12 +78,13 @@ _OFF = contextlib.nullcontext()
 #: registry name -> (kernel module, its counted wrapper)
 _KERNEL_WRAPPERS = {
     "lora_matmul": ("lora_matmul", "lora_matmul_fused"),
+    "lora_matmul_bwd": ("lora_matmul", "lora_matmul_bwd"),
     "flash_attention": ("flash_attention", "flash_attention_bshd"),
     "moe_expert_ffn": ("moe_ffn", "moe_expert_ffn_ecd"),
     "ssd_scan": ("ssd_scan", "ssd_scan_bshp"),
     "flash_decode": ("flash_decode", "flash_decode_bhrd"),
 }
-_KERNEL_COUNTS = ("launches", "variants", "padded", "filled")
+_KERNEL_COUNTS = ("launches", "variants", "padded", "filled", "plain")
 
 #: device -> (2,) int64: MoE slots routed, and dropped past capacity
 _MOE: Dict[torch.device, torch.Tensor] = {}

@@ -53,6 +53,37 @@
 // a protocol bug surfaces as a CUDA error at the next synchronize and not
 // as a hung card.
 //
+// The input gradient (the backward's one large product; replaces no TPU
+// kernel: the JAX package differentiates `lora_matmul_ref` in f32, the VJP
+// `_lora_bwd`, src/repro/kernels/ops.py:206-212):
+//
+//   dx = g @ W^T + (s * g @ B^T) @ A^T       g (M,N) -> dx (M,K)
+//
+// It is 2*M*N*K operations, as the forward's, on the same operands. On the
+// bf16 path g, W, A and B hold bf16 values, so bf16 products with f32
+// accumulators form the f32 VJP's products exactly and sum them in f32; only
+// the order of the sums moves. Two launches, the forward's design with the
+// roles of K and N swapped:
+//
+//   * A pre-pass computes g_xa = s * (g @ B^T) over the depth N in f32 (the
+//     forward's pre-pass, B's rows read as the columns of B^T; each 256-deep
+//     tile's MMA sums added into f32 registers, as below), and writes it
+//     twice: as f32 (M, r_pad), which dA = x^T @ g_xa takes, and split
+//     into three bf16 terms hi + mid + lo whose sum is each f32 value
+//     exactly (8 significant bits each, 24 in all), as (M, 3 r_pad)
+//     [hi | mid | lo]. g_xa is never rounded to bf16 once.
+//   * The main kernel runs one GEMM over the depth [3 r_pad | N]: the three
+//     terms against A^T (the rank steps read A's columns once per term),
+//     then g @ W^T, all into one f32 accumulator, rounded to bf16 once.
+//     W (K, N) and A (K, r) are row-major, so each is already contiguous
+//     along this GEMM's depth: one TMA box of BN rows x 64 deep is the
+//     wgmma B operand as it lies (K-major, tnspB = 0); no copy, no
+//     transpose, no f32 copy of W. The wgmma sums of every 4 depth steps
+//     are added into the f32 accumulator on the CUDA cores, so that dx
+//     keeps f32's rounding over depths of 16K and more (the tensor cores'
+//     own accumulator does not; see lora_wgmma_kernel); that holds two
+//     accumulators in registers, so dx's tiles are 128 x 128.
+//
 // Plain C interface, loaded with ctypes by repro_torch/kernels/build.py;
 // launches on the caller's stream and returns cudaGetLastError().
 // cuTensorMapEncodeTiled is reached through the runtime's driver entry
@@ -161,20 +192,47 @@ constexpr int STAGE = BM * LDX + BK * LDA;   // bf16 elements
 constexpr int SMEM = STAGES * STAGE * 2;     // 161,280 bytes
 static_assert(KS * BM * LDR * 4 <= SMEM, "the partial sums fit in the ring");
 static_assert(BM * 8 == THREADS, "one 8-column run of xa per thread");
+static_assert(BR * LDX <= BK * LDA, "a tile of B^T fits where a tile of A goes");
 }  // namespace pre
+
+// v0 and v1 as three bf16 pairs that add up to them exactly: each term
+// keeps 8 significant bits of what the ones before it left, so three hold
+// f32's 24 (every difference below is exact). Exact down to |v| = 2^-110,
+// where the last term, a multiple of v's f32 ulp, is still a bf16 value;
+// below, off by less than bf16's least step, 2^-133.
+__device__ __forceinline__ void split3(float v0, float v1, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = v0 - hf.x, r1 = v1 - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(m);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(r0 - mf.x, r1 - mf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
 
 // One block per 32 rows x 64 rank columns, 8 warps: a warp owns 16 rows
 // and one depth slice of each 256-deep tile, all 64 columns, so eight
 // warps keep the MMA pipe busy where one x tile is small; the depth
 // slices' partial sums are added through shared memory at the end.
 // Column pairs at or past r are skipped (r = 32 does half the MMAs of
-// r = 64). x and A are read in whole 16-byte vectors: the wrapper pads
-// x's rows and A's (width r) to multiples of 8. Block b walks the depth
-// tiles from tile b on, so that the blocks do not all ask L2 for the
-// same A tile at once.
+// r = 64). x and the second operand are read in whole 16-byte vectors: the
+// wrapper pads x's rows and A's (width r) or B's (width K) to multiples
+// of 8. Block b walks the depth tiles from tile b on, so that the blocks
+// do not all ask L2 for the same tile of the second operand at once.
+//
+// BT = false (the forward): xa = round_bf16(x @ A), A (K, r) row-major,
+// into xa (M, r_pad). BT = true (the input gradient): x is g (M, K = the
+// depth N) and `a` is B (r, K) with x's row stride, read as B^T; the sums
+// times s go to xa32 (M, r_pad) in f32 and, split by split3, to xa (M,
+// 3 r_pad) as [hi | mid | lo].
+template <bool BT>
 __global__ void __launch_bounds__(pre::THREADS)
 xa_bf16_kernel(const bf16* __restrict__ x, int ldx, const bf16* __restrict__ a,
-               bf16* __restrict__ xa, int M, int K, int r, int r_pad) {
+               bf16* __restrict__ xa, float* __restrict__ xa32, int M, int K, int r, int r_pad,
+               float s) {
   using namespace pre;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
@@ -182,7 +240,10 @@ xa_bf16_kernel(const bf16* __restrict__ x, int ldx, const bf16* __restrict__ a,
   const int g = lane / 4, t4 = lane % 4, rg = warp % 2, ks = warp / 2;
   const int m0 = blockIdx.x * BM, c0 = blockIdx.y * BR;
 
-  float acc[8][4];
+  // BT: each depth tile's MMA sums go to `part` from zero and then into
+  // acc in f32 (the tensor cores' accumulator drops low bits; see
+  // lora_wgmma_kernel), so that g_xa keeps f32's rounding over the depth N
+  float acc[8][4], part[8][4];
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -194,8 +255,12 @@ xa_bf16_kernel(const bf16* __restrict__ x, int ldx, const bf16* __restrict__ a,
     bf16* base = ring + st * STAGE;
     load_tile<bf16, BM, BK, true, THREADS>(base, LDX, x + (long)m0 * ldx + k0, ldx,
                                            M - m0, K - k0, tid);
-    load_tile<bf16, BK, BR, true, THREADS>(base + BM * LDX, LDA, a + (long)k0 * r + c0, r,
-                                           K - k0, r - c0, tid);
+    if constexpr (BT)
+      load_tile<bf16, BR, BK, true, THREADS>(base + BM * LDX, LDX, a + (long)c0 * ldx + k0,
+                                             ldx, r - c0, K - k0, tid);
+    else
+      load_tile<bf16, BK, BR, true, THREADS>(base + BM * LDX, LDA, a + (long)k0 * r + c0, r,
+                                             K - k0, r - c0, tid);
   };
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
@@ -209,6 +274,12 @@ xa_bf16_kernel(const bf16* __restrict__ x, int ldx, const bf16* __restrict__ a,
     cp_async_commit();
     const bf16* x_s = ring + (kt % STAGES) * STAGE;
     const bf16* a_s = x_s + BM * LDX;
+    if constexpr (BT) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+    }
 #pragma unroll
     for (int kk = ks * KW; kk < ks * KW + KW; kk += 16) {
       uint32_t af[4], bf[4];
@@ -216,19 +287,31 @@ xa_bf16_kernel(const bf16* __restrict__ x, int ldx, const bf16* __restrict__ a,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (c0 + 16 * j >= r) continue;   // zero columns: nothing to add
-        ldsm_x4_trans(bf, a_s + (kk + lane % 8 + ((lane / 8) % 2) * 8) * LDA + j * 16 +
-                              (lane / 16) * 8);
-        mma_bf16(acc[2 * j], af, bf[0], bf[1]);
-        mma_bf16(acc[2 * j + 1], af, bf[2], bf[3]);
+        // the same four 8x8 fragments either way: B^T's rows are the
+        // columns of A's layout, so they need no transpose
+        if constexpr (BT)
+          ldsm_x4(bf, a_s + (j * 16 + lane % 8 + (lane / 16) * 8) * LDX + kk +
+                          ((lane / 8) % 2) * 8);
+        else
+          ldsm_x4_trans(bf, a_s + (kk + lane % 8 + ((lane / 8) % 2) * 8) * LDA + j * 16 +
+                                (lane / 16) * 8);
+        float(&d)[8][4] = BT ? part : acc;
+        mma_bf16(d[2 * j], af, bf[0], bf[1]);
+        mma_bf16(d[2 * j + 1], af, bf[2], bf[3]);
       }
+    }
+    if constexpr (BT) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
     }
   }
   cp_async_wait<0>();
   __syncthreads();                  // the ring is reused below
 
   // the depth slices' partial sums, then 8 columns of one row at a time
-  // summed and rounded to B's dtype once (lora_matmul.py:89); columns
-  // past r are 0
+  // summed; columns past r are 0
   float* red = reinterpret_cast<float*>(smem);
 #pragma unroll
   for (int j = 0; j < 8; ++j)
@@ -240,20 +323,34 @@ xa_bf16_kernel(const bf16* __restrict__ x, int ldx, const bf16* __restrict__ a,
     }
   __syncthreads();
   const int row = tid / 8, col = (tid % 8) * 8;   // BM * 8 == THREADS
-  if (m0 + row < M) {
+  if (m0 + row >= M) return;
+  float v[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    v[e] = 0.f;
+#pragma unroll
+    for (int q = 0; q < KS; ++q) v[e] += red[(q * BM + row) * LDR + col + e];
+  }
+  const long at = (long)(m0 + row) * r_pad + c0 + col;
+  if constexpr (BT) {
+    // __fmul_rn: never contracted into an FMA with the split's subtractions
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = __fmul_rn(v[e], s);
+    *reinterpret_cast<float4*>(xa32 + at) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(xa32 + at + 4) = make_float4(v[4], v[5], v[6], v[7]);
+    uint32_t hi[4], mid[4], lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split3(v[2 * e], v[2 * e + 1], hi[e], mid[e], lo[e]);
+    bf16* out = xa + (long)(m0 + row) * 3 * r_pad + c0 + col;
+    *reinterpret_cast<uint4*>(out) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(out + r_pad) = make_uint4(mid[0], mid[1], mid[2], mid[3]);
+    *reinterpret_cast<uint4*>(out + 2 * r_pad) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  } else {
+    // rounded to B's dtype once (lora_matmul.py:89)
     uint32_t packed[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float v0 = 0.f, v1 = 0.f;
-#pragma unroll
-      for (int q = 0; q < KS; ++q) {
-        v0 += red[(q * BM + row) * LDR + col + 2 * e];
-        v1 += red[(q * BM + row) * LDR + col + 2 * e + 1];
-      }
-      packed[e] = pack_bf16(v0, v1);
-    }
-    *reinterpret_cast<uint4*>(xa + (long)(m0 + row) * r_pad + c0 + col) =
-        make_uint4(packed[0], packed[1], packed[2], packed[3]);
+    for (int e = 0; e < 4; ++e) packed[e] = pack_bf16(v[2 * e], v[2 * e + 1]);
+    *reinterpret_cast<uint4*>(xa + at) = make_uint4(packed[0], packed[1], packed[2], packed[3]);
   }
 }
 
@@ -263,6 +360,9 @@ xa_bf16_kernel(const bf16* __restrict__ x, int ldx, const bf16* __restrict__ a,
 
 namespace wg {
 constexpr int BM = 128, BK = 64, GROUP_M = 8, THREADS = 384;
+// the input gradient adds its wgmma sums into f32 registers every PROMOTE
+// depth steps (see lora_wgmma_kernel)
+constexpr int PROMOTE = 4;
 constexpr int A_BYTES = BM * BK * 2;     // x / xa tile: 128 rows of 128 bytes
 constexpr int BOX_BYTES = BK * 64 * 2;   // one 64 (deep) x 64 (wide) box of W / B
 template <int BN> __host__ __device__ constexpr int stage_bytes() {
@@ -340,9 +440,11 @@ template <int R> __device__ __forceinline__ void fence_acc(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x 128 f32, 64 a thread) += A (64 x 16, K-major) * B (16 x 128,
-// MN-major, so tnspB = 1), both from shared memory; bf16 inputs
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db) {
+// d (64 x 128 f32, 64 a thread) = A (64 x 16, K-major) * B (16 x 128;
+// TB = 1: MN-major, TB = 0: K-major) + (acc ? d : 0), both from shared
+// memory; bf16 inputs
+template <int TB>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db, int acc) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %66, 0;\n"
@@ -351,7 +453,7 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -360,12 +462,13 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(acc), "n"(TB));
 }
 
-// d (64 x 256 f32, 128 a thread) += A (64 x 16, K-major) * B (16 x 256,
-// MN-major, so tnspB = 1), both from shared memory; bf16 inputs
-__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_t db) {
+// d (64 x 256 f32, 128 a thread) = A (64 x 16, K-major) * B (16 x 256;
+// TB as wgmma_n128) + (acc ? d : 0), both from shared memory; bf16 inputs
+template <int TB>
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_t db, int acc) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %130, 0;\n"
@@ -378,7 +481,7 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -395,26 +498,43 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(acc), "n"(TB));
 }
 
-template <int BN> __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da,
-                                                             uint64_t db) {
-  if constexpr (BN == 128) wgmma_n128(d, da, db);
-  else wgmma_n256(d, da, db);
+template <int BN, int TB>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da, uint64_t db,
+                                           int acc = 1) {
+  if constexpr (BN == 128) wgmma_n128<TB>(d, da, db, acc);
+  else wgmma_n256<TB>(d, da, db, acc);
 }
 
 // Depth steps 0..nr-1 read xa and B (the rank product), steps nr.. read x
 // and W. Shared memory per stage: the 128 x 64 x / xa tile (consumer c
 // reads rows 64c..64c+63, 8 KB in), then BN/64 boxes of 64 deep x 64 wide
 // of W / B, 8 KB apart.
-template <int BN>
+//
+// BWD (the input gradient): xa is the split g_xa (M, 3 r_pad), x is g,
+// and the second operands are A (K, r) and W (K, N) as they lie: one box of
+// BN rows (dx's columns) x 64 deep each, K-major, the same 128-byte rows
+// as the first operand's. Rank step i reads A's columns from (i % nr_b) *
+// 64, so each of the three terms meets the same A^T. s is already in g_xa:
+// no scaling between the two products. The tensor cores' accumulator does
+// not round as f32 adds do (it drops low bits of the products it aligns,
+// so its error grows with the number of wgmma steps, not their square
+// root): over jamba's depth of 16,544 it left 1.1% of dx's bf16 elements a
+// step off the f32 sums, as cuBLAS's bf16 GEMM does. So the wgmma steps
+// of each chunk of PROMOTE depth steps sum into a part accumulator,
+// started from zero, which is then added into `acc` on the CUDA cores in
+// f32, as an FP8 GEMM promotes its partial sums. Both accumulators fit
+// in ptxas's budget for a 384-thread block (168 registers a thread) at BN
+// 128 only, so BWD runs at BN 128.
+template <int BN, bool BWD>
 __global__ void __launch_bounds__(wg::THREADS, 1)
 lora_wgmma_kernel(const __grid_constant__ CUtensorMap tm_xa,
                   const __grid_constant__ CUtensorMap tm_b,
                   const __grid_constant__ CUtensorMap tm_x,
                   const __grid_constant__ CUtensorMap tm_w, bf16* __restrict__ out,
-                  int M, int N, int nr, int nk, float s) {
+                  int M, int N, int nr, int nr_b, int nk, float s) {
   using namespace wg;
   constexpr int S = stages<BN>(), STAGE = stage_bytes<BN>(), R = BN / 2;
   extern __shared__ unsigned char smem_raw[];
@@ -452,15 +572,21 @@ lora_wgmma_kernel(const __grid_constant__ CUtensorMap tm_xa,
         const bool rank = i < nr;
         const int k0 = (rank ? i : i - nr) * BK;
         tma_load_2d(dst, rank ? &tm_xa : &tm_x, bar, k0, m0);
+        if constexpr (BWD) {
+          tma_load_2d(dst + A_BYTES, rank ? &tm_b : &tm_w, bar, rank ? i % nr_b * BK : k0, n0);
+        } else {
 #pragma unroll
-        for (int j = 0; j < BN / 64; ++j)
-          tma_load_2d(dst + A_BYTES + j * BOX_BYTES, rank ? &tm_b : &tm_w, bar, n0 + 64 * j, k0);
+          for (int j = 0; j < BN / 64; ++j)
+            tma_load_2d(dst + A_BYTES + j * BOX_BYTES, rank ? &tm_b : &tm_w, bar, n0 + 64 * j,
+                        k0);
+        }
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int c = group - 1;
     float acc[R];
+    float part[BWD ? R : 1];   // BWD: the current chunk's sum
 #pragma unroll
     for (int i = 0; i < R; ++i) acc[i] = 0.f;
     auto release = [&](int st) {
@@ -472,16 +598,42 @@ lora_wgmma_kernel(const __grid_constant__ CUtensorMap tm_xa,
       mbar_wait(full0 + 8 * st, (i / S) & 1);
       const uint32_t a_s = tiles + st * STAGE + c * 64 * 128;
       const uint32_t b_s = tiles + st * STAGE + A_BYTES;
+      // A: K-major, 16 deep = 32 bytes along the swizzled row; 8-row groups
+      // 1024 bytes apart. B, forward: N-major, 16 deep = 16 rows of 128
+      // bytes; 64-wide boxes BOX_BYTES apart, 8-row groups 1024 apart. B,
+      // BWD: K-major as A, BN rows.
+      if constexpr (BWD) {
+        const bool first = i % PROMOTE == 0;
+        fence_acc(part);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)   // a chunk starts its part from zero
+          wgmma_tile<BN, 0>(part, sw128_desc(a_s + kk * 32, 16, 1024),
+                            sw128_desc(b_s + kk * 32, 16, 1024), !first || kk != 0);
+        wgmma_commit();
+        fence_acc(part);
+        if (i % PROMOTE == PROMOTE - 1 || i == n - 1) {
+          wgmma_wait<0>();
+          fence_acc(part);
+          if (held >= 0) release(held);
+          release(st);
+          held = -1;
+#pragma unroll
+          for (int e = 0; e < R; ++e) acc[e] += part[e];
+        } else {
+          wgmma_wait<1>();   // step i-1's group is done with its stage
+          fence_acc(part);
+          if (held >= 0) release(held);
+          held = st;
+        }
+        continue;
+      }
       fence_acc(acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        // A: K-major, 16 deep = 32 bytes along the swizzled row; 8-row
-        // groups 1024 bytes apart. B: N-major, 16 deep = 16 rows of 128
-        // bytes; 64-wide boxes BOX_BYTES apart, 8-row groups 1024 apart.
-        wgmma_tile<BN>(acc, sw128_desc(a_s + kk * 32, 16, 1024),
-                       sw128_desc(b_s + kk * 2048, BOX_BYTES, 1024));
-      }
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_tile<BN, 1>(acc, sw128_desc(a_s + kk * 32, 16, 1024),
+                          sw128_desc(b_s + kk * 2048, BOX_BYTES, 1024));
       wgmma_commit();
       fence_acc(acc);
       if (i == nr - 1) {
@@ -674,24 +826,41 @@ bool bf16_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int rows, i
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN>
-cudaError_t launch_wgmma(const void* xa, const void* x, const void* w, const void* b, void* out,
-                         int M, int N, int K, int kw, int r, int r_pad, float s, int grid,
-                         cudaStream_t st) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return cudaErrorNotSupported;
-  CUtensorMap m_xa, m_b, m_x, m_w;
-  if (!bf16_map(encode, &m_xa, xa, M, r_pad, wg::BM) || !bf16_map(encode, &m_b, b, r, N, 64) ||
-      !bf16_map(encode, &m_x, x, M, K, wg::BM) || !bf16_map(encode, &m_w, w, kw, N, 64))
-    return cudaErrorInvalidValue;
-  auto kernel = lora_wgmma_kernel<BN>;
+template <int BN, bool BWD>
+cudaError_t launch_wgmma(const CUtensorMap& m_xa, const CUtensorMap& m_b, const CUtensorMap& m_x,
+                         const CUtensorMap& m_w, void* out, int M, int N, int nr, int nr_b,
+                         int nk, float s, int grid, cudaStream_t st) {
+  auto kernel = lora_wgmma_kernel<BN, BWD>;
   static std::atomic<unsigned long long> done{0};
   const cudaError_t err = allow_smem(kernel, wg::smem_bytes<BN>(), done);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, wg::THREADS, wg::smem_bytes<BN>(), st>>>(
-      m_xa, m_b, m_x, m_w, static_cast<bf16*>(out), M, N, r_pad / 64, (K + wg::BK - 1) / wg::BK,
-      s);
+  kernel<<<grid, wg::THREADS, wg::smem_bytes<BN>(), st>>>(m_xa, m_b, m_x, m_w,
+                                                          static_cast<bf16*>(out), M, N, nr, nr_b,
+                                                          nk, s);
   return cudaGetLastError();
+}
+
+// the forward's or the input gradient's main kernel at tile width block_n
+// over the four maps; the second operands' boxes are 64 wide (forward) or
+// block_n rows (BWD)
+template <bool BWD>
+cudaError_t launch_main(const void* xa, int xa_rows, int xa_cols, const void* b, int b_rows,
+                        int b_cols, const void* x, int x_cols, const void* w, int w_rows,
+                        int w_cols, void* out, int M, int N, int nr, int nr_b, int nk, float s,
+                        int block_n, int grid, cudaStream_t st) {
+  if (block_n != 128 && (BWD || block_n != 256)) return cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  const int box = BWD ? block_n : 64;
+  CUtensorMap m_xa, m_b, m_x, m_w;
+  if (!bf16_map(encode, &m_xa, xa, xa_rows, xa_cols, wg::BM) ||
+      !bf16_map(encode, &m_b, b, b_rows, b_cols, box) ||
+      !bf16_map(encode, &m_x, x, M, x_cols, wg::BM) ||
+      !bf16_map(encode, &m_w, w, w_rows, w_cols, box))
+    return cudaErrorInvalidValue;
+  if (block_n == 128)
+    return launch_wgmma<128, BWD>(m_xa, m_b, m_x, m_w, out, M, N, nr, nr_b, nk, s, grid, st);
+  return launch_wgmma<256, false>(m_xa, m_b, m_x, m_w, out, M, N, nr, nr_b, nk, s, grid, st);
 }
 
 }  // namespace
@@ -715,11 +884,11 @@ int lora_xa_launch(const void* x, int ldx, const void* a, void* xa, int M, int K
                       r_pad, K, 1.f, grid, st);
   if (ldx % 8 || r % 8) return cudaErrorInvalidValue;
   static std::atomic<unsigned long long> done{0};
-  const cudaError_t err = allow_smem(xa_bf16_kernel, pre::SMEM, done);
+  const cudaError_t err = allow_smem(xa_bf16_kernel<false>, pre::SMEM, done);
   if (err != cudaSuccess) return err;
-  xa_bf16_kernel<<<grid, pre::THREADS, pre::SMEM, st>>>(
-      static_cast<const bf16*>(x), ldx, static_cast<const bf16*>(a), static_cast<bf16*>(xa), M,
-      K, r, r_pad);
+  xa_bf16_kernel<false><<<grid, pre::THREADS, pre::SMEM, st>>>(
+      static_cast<const bf16*>(x), ldx, static_cast<const bf16*>(a), static_cast<bf16*>(xa),
+      nullptr, M, K, r, r_pad, 1.f);
   return cudaGetLastError();
 }
 
@@ -740,11 +909,43 @@ int lora_matmul_launch(const void* xa, const void* x, const void* w, const void*
                       static_cast<const float*>(x), static_cast<const float*>(w), N, N,
                       static_cast<float*>(out), N, M, N, K, s, dim3(grid_x, grid_y), st);
   if (K % 8 || N % 8) return cudaErrorInvalidValue;
-  if (block_n == 128)
-    return launch_wgmma<128>(xa, x, w, b, out, M, N, K, kw, r, r_pad, s, grid_x, st);
-  if (block_n == 256)
-    return launch_wgmma<256>(xa, x, w, b, out, M, N, K, kw, r, r_pad, s, grid_x, st);
-  return cudaErrorInvalidValue;
+  return launch_main<false>(xa, M, r_pad, b, r, N, x, K, w, kw, N, out, M, N, r_pad / 64,
+                            r_pad / 64, (K + wg::BK - 1) / wg::BK, s, block_n, grid_x, st);
+}
+
+// The input gradient's pre-pass (bf16): gxa (M, r_pad) f32 = s * (g @
+// b^T) for g (M, N) and b (r, N), both with row stride N (N % 8 == 0,
+// columns past the true width zero), columns past r zero; and gs (M,
+// 3 r_pad) bf16 = [hi | mid | lo] with hi + mid + lo == gxa exactly.
+// grid: (M/32, r_pad/64) blocks.
+int lora_gxa_launch(const void* g, const void* b, float* gxa, void* gs, int M, int N, int r,
+                    int r_pad, float s, int grid_x, int grid_y, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M < 1 || N < 1 || r < 1 || r_pad % 64 || r_pad < r || N % 8)
+    return cudaErrorInvalidValue;
+  static std::atomic<unsigned long long> done{0};
+  const cudaError_t err = allow_smem(xa_bf16_kernel<true>, pre::SMEM, done);
+  if (err != cudaSuccess) return err;
+  xa_bf16_kernel<true><<<dim3(grid_x, grid_y), pre::THREADS, pre::SMEM, st>>>(
+      static_cast<const bf16*>(g), N, static_cast<const bf16*>(b), static_cast<bf16*>(gs), gxa,
+      M, N, r, r_pad, s);
+  return cudaGetLastError();
+}
+
+// The input gradient's main pass (bf16): dx (M, K) = gs @ [A^T; A^T; A^T]
+// + g @ W^T, for gs (M, 3 r_pad) from lora_gxa_launch, g (M, N), w (kw,
+// N) and a (kw, r_a), all contiguous; K and N multiples of 8, r_a a
+// multiple of 8 and at most r_pad, kw <= K (dx's columns past kw come out
+// zero). 128 x 128 tiles of dx, `grid_x` blocks.
+int lora_dx_launch(const void* gs, const void* g, const void* w, const void* a, void* dx, int M,
+                   int K, int N, int kw, int r_a, int r_pad, int grid_x, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M < 1 || N < 1 || kw < 1 || kw > K || r_a < 1 || r_pad % 64 || r_pad < r_a ||
+      K % 8 || N % 8 || r_a % 8)
+    return cudaErrorInvalidValue;
+  return launch_main<true>(gs, M, 3 * r_pad, a, kw, r_a, g, N, w, kw, N, dx, M, K,
+                           3 * r_pad / 64, r_pad / 64, (N + wg::BK - 1) / wg::BK, 1.f, 128,
+                           grid_x, st);
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 """Wrapper of the Hopper fused frozen-weight + LoRA matmul kernel
-(``csrc/lora_matmul.cu``): ``x @ w + scaling * ((x @ a) @ b)``, any rank.
+(``csrc/lora_matmul.cu``): ``x @ w + scaling * ((x @ a) @ b)``, any rank,
+and of its input gradient ``dx = g @ w.T + scaling * (g @ b.T) @ a.T``.
 
 Replaces the TPU kernel ``lora_matmul`` of the JAX package. A call runs
 two kernels on the current stream: the pre-pass ``xa = round(x @ a)``
@@ -17,6 +18,18 @@ not take; it allocates the scratch, any padding and the output with
 error. Per call it adds one to ``lora_matmul_fused.launches``, one to
 ``lora_matmul_fused.variants[variant]`` and, where it padded, one to
 ``lora_matmul_fused.padded``.
+
+The input gradient (bf16 only; replaces no TPU kernel: the JAX package
+differentiates the plain version) has its own entry, ``lora_matmul_bwd``,
+which ``ops.lora_matmul``'s backward calls for bf16 on the card, apart
+from the registry's ``lora_matmul``. Its two kernels: a pre-pass g_xa =
+scaling * g @ b.T in f32, written as f32 and as three bf16 terms that sum
+to it exactly, then the main kernel over the depth ``[3 r_pad | N]``
+(``plan_bwd``, ``pad_bwd_operands`` and ``prepass_bwd`` as for the
+forward). It counts ``lora_matmul_bwd.launches``,
+``.variants`` and ``.padded`` as the forward does; ``.plain`` counts the
+backward calls on the card that ran the plain f32 products instead
+(``ops``).
 
 The kernels are built at the first call (``repro_torch.kernels.build``),
 never at import. There is no CPU path here: ``dispatch`` gives CPU
@@ -128,17 +141,23 @@ def _lib():
         lib.lora_matmul_launch.argtypes = ([vp] * 5 + [i] * 6
                                            + [ctypes.c_float] + [i] * 4
                                            + [vp])
-        lib.lora_xa_launch.restype = lib.lora_matmul_launch.restype = i
+        lib.lora_gxa_launch.argtypes = ([vp] * 4 + [i] * 4 + [ctypes.c_float]
+                                        + [i] * 2 + [vp])
+        lib.lora_dx_launch.argtypes = [vp] * 5 + [i] * 7 + [vp]
+        for fn in (lib.lora_xa_launch, lib.lora_matmul_launch,
+                   lib.lora_gxa_launch, lib.lora_dx_launch):
+            fn.restype = i
         _BOUND["lib"] = lib
     return _BOUND["lib"]
 
 
 def _raise_on(err: int, what: str, p: Plan, x2: torch.Tensor, r: int
               ) -> None:
+    """Raise if a launch of ``x2`` (M, depth) at rank ``r`` failed."""
     if err != 0:
         raise RuntimeError(f"lora_matmul {what} launch failed: CUDA error "
-                           f"{err} (M={x2.shape[0]} K={x2.shape[1]} r={r} "
-                           f"{x2.dtype} {p})")
+                           f"{err} (M={x2.shape[0]} depth={x2.shape[1]} "
+                           f"r={r} {x2.dtype} {p})")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -244,14 +263,131 @@ def lora_matmul_fused(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     return out
 
 
+@functools.lru_cache(maxsize=256)
+def plan_bwd(m: int, k: int, n: int, r: int, dtype: torch.dtype) -> Plan:
+    """The plan of the input gradient of a call with x (m, k), w (k, n),
+    a (k, r), b (r, n): bf16 only (``wgmma``; raises on any other dtype).
+    ``r_pad``: g_xa's width, r rounded up to 64 (its split is 3 r_pad
+    wide); ``k_pad``: dx's width, tiled 128 wide (``block_n``: the tile
+    that holds both of the kernel's f32 accumulators in registers);
+    ``n_pad``: the depth, to which g, W and B are zero-padded; ``r_a``:
+    A's padded width. ``grid``: the main kernel's blocks,
+    ``prepass_grid``: the pre-pass's."""
+    if min(m, k, n, r) < 1:
+        raise ValueError(f"empty lora_matmul M={m} K={k} N={n} r={r}")
+    if dtype != torch.bfloat16:
+        raise ValueError(f"the lora_matmul input-gradient kernel takes "
+                         f"bf16, got {dtype}")
+    r_pad = round_up(r, 64)
+    k_pad, n_pad, r_a = round_up(k, 8), round_up(n, 8), round_up(r, 8)
+    return Plan("wgmma", r_pad, k_pad, n_pad, r_a, 128,
+                (_cdiv(m, 128) * _cdiv(k_pad, 128), 1),
+                (_cdiv(m, 32), r_pad // 64),
+                padded=(k_pad, n_pad, r_a) != (k, n, r))
+
+
+def pad_bwd_operands(p: Plan, g: torch.Tensor, w: torch.Tensor,
+                     a: torch.Tensor, b: torch.Tensor):
+    """(M, N) ``g``, w, b zero-padded along N to ``p.n_pad`` and a along
+    r to ``p.r_a`` (unchanged where the plan says nothing). K is never
+    padded: the kernel reads W's and A's rows past K as zeros."""
+    n = w.shape[1]
+    if p.n_pad != n:
+        g, w, b = (F.pad(t, (0, p.n_pad - n)) for t in (g, w, b))
+    if p.r_a != a.shape[1]:
+        a = F.pad(a, (0, p.r_a - a.shape[1]))
+    return g, w, a, b
+
+
+def prepass_bwd(p: Plan, g: torch.Tensor, b: torch.Tensor,
+                scaling: float):
+    """The input gradient's pre-pass alone (counted nowhere): g_xa (M,
+    r_pad) f32 = scaling * g @ b.T, columns past r zero, and its split (M,
+    3 r_pad) bf16 ``[hi | mid | lo]``, hi + mid + lo == g_xa exactly.
+    ``g`` (M, p.n_pad) and ``b`` (r, p.n_pad) as ``pad_bwd_operands``
+    gives them, on the current device."""
+    m, r = g.shape[0], b.shape[0]
+    gxa = torch.empty((m, p.r_pad), dtype=torch.float32, device=g.device)
+    split = torch.empty((m, 3 * p.r_pad), dtype=g.dtype, device=g.device)
+    err = _lib().lora_gxa_launch(
+        g.data_ptr(), b.data_ptr(), gxa.data_ptr(), split.data_ptr(), m,
+        p.n_pad, r, p.r_pad, float(scaling), *p.prepass_grid, _stream(g))
+    _raise_on(err, "input-gradient pre-pass", p, g, r)
+    return gxa, split
+
+
+def lora_matmul_bwd(g: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor, *, scaling: float = 1.0,
+                    dx: bool = True):
+    """The input gradient of ``lora_matmul`` on the card: g (M, N), the
+    output's gradient; w (K, N), a (K, r), b (r, N); all bf16 on one CUDA
+    device. Returns (dx (M, K) bf16 = g @ w.T + g_xa @ a.T, summed in f32
+    and rounded once, or None with ``dx=False``; g_xa (M, r) f32 =
+    scaling * g @ b.T, which dA takes). w, a and b must be contiguous and
+    16-byte aligned, as the forward's kernel took them; g is made so."""
+    if not (g.dtype == w.dtype == a.dtype == b.dtype == torch.bfloat16):
+        raise ValueError(f"dtypes g={g.dtype} w={w.dtype} a={a.dtype} "
+                         f"b={b.dtype}: the input-gradient kernel takes "
+                         f"bf16 for all four")
+    if g.dim() != 2 or w.dim() != 2 or a.dim() != 2 or b.dim() != 2:
+        raise ValueError(f"shapes g={tuple(g.shape)} w={tuple(w.shape)} "
+                         f"a={tuple(a.shape)} b={tuple(b.shape)}: need "
+                         f"g (M, N), w (K, N), a (K, r), b (r, N)")
+    (k, n), r = w.shape, a.shape[1]
+    if g.shape[1] != n or a.shape[0] != k or b.shape != (r, n) or r < 1:
+        raise ValueError(f"shapes g={tuple(g.shape)} w={tuple(w.shape)} "
+                         f"a={tuple(a.shape)} b={tuple(b.shape)} disagree")
+    if g.device.type != "cuda":
+        raise ValueError(f"the Hopper lora_matmul kernel takes CUDA tensors, "
+                         f"got {g.device}")
+    if not (g.device == w.device == a.device == b.device):
+        raise ValueError("g, w, a and b must share one device")
+    if not all(t.is_contiguous() for t in (w, a, b)) \
+            or any(t.data_ptr() % 16 for t in (w, a, b)):
+        raise ValueError("w, a and b must be contiguous and start at "
+                         "16-byte aligned addresses")
+    g = g.contiguous()
+    if g.data_ptr() % 16:
+        g = g.clone()
+    m = g.shape[0]
+    if m == 0:
+        return (torch.empty((0, k), dtype=g.dtype, device=g.device)
+                if dx else None,
+                torch.empty((0, r), dtype=torch.float32, device=g.device))
+    p = plan_bwd(m, k, n, r, g.dtype)
+    g, w, a, b = pad_bwd_operands(p, g, w, a, b)
+    out = None
+    with torch.cuda.device(g.device):
+        gxa, split = prepass_bwd(p, g, b, scaling)
+        if dx:
+            out = torch.empty((m, p.k_pad), dtype=g.dtype, device=g.device)
+            err = _lib().lora_dx_launch(
+                split.data_ptr(), g.data_ptr(), w.data_ptr(), a.data_ptr(),
+                out.data_ptr(), m, p.k_pad, p.n_pad, k, p.r_a, p.r_pad,
+                p.grid[0], _stream(g))
+            _raise_on(err, "input-gradient main", p, g, r)
+            if p.k_pad != k:
+                out = out[:, :k]
+    lora_matmul_bwd.launches += 1
+    lora_matmul_bwd.variants[p.variant] += 1
+    lora_matmul_bwd.padded += int(p.padded)
+    return out, gxa[:, :r]
+
+
 def reset_counts() -> None:
     """Zero the counts: ``launches`` (wrapper calls that launched the
     pre-pass and the main pass), ``variants`` (those calls by variant,
     ``wgmma`` or ``fma_f32``) and ``padded`` (those that zero-padded a
-    ragged K, N or r)."""
-    lora_matmul_fused.launches = 0
-    lora_matmul_fused.variants = collections.Counter()
-    lora_matmul_fused.padded = 0
+    ragged K, N or r), of ``lora_matmul_fused`` and of
+    ``lora_matmul_bwd`` (whose ``launches`` are calls that launched the
+    pre-pass, and the main pass where dx was asked for); and
+    ``lora_matmul_bwd.plain``, the backward calls on the card that ran
+    the plain f32 products."""
+    for fn in (lora_matmul_fused, lora_matmul_bwd):
+        fn.launches = 0
+        fn.variants = collections.Counter()
+        fn.padded = 0
+    lora_matmul_bwd.plain = 0
 
 
 reset_counts()

@@ -10,7 +10,12 @@ or raises — there is no fallback to the plain version on the card.
 ``torch.autograd.Function`` (the JAX
 package's ``custom_vjp``): the forward runs the kernel, the backward is
 the gradient of the plain version on the saved inputs. The JAX package
-has no backward kernel for any of them, so none has one here. Under a
+has no backward kernel for any of them. One backward product has a
+kernel here all the same: ``lora_matmul``'s input gradient, 2·M·N·K
+operations as the forward's, runs on the card's tensor cores in bf16
+with f32 sums (``lora_matmul.lora_matmul_bwd``) where the call is bf16
+on the card (``backward_route``); the bf16 operands make its products
+the f32 gradient's own, so only the order of its sums moves. Under a
 profiler the forward's kernel call is the span ``kernel.<name>`` and the
 backward ``kernel.<name>.backward`` (``repro_torch.analysis.tracing``).
 """
@@ -22,6 +27,7 @@ import torch
 
 from repro_torch.analysis.tracing import span
 from repro_torch.kernels import dispatch, ref
+from repro_torch.kernels.lora_matmul import lora_matmul_bwd
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -67,11 +73,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _FlashAttention.apply(q, k, v, causal, window, scale, backend)
 
 
+def backward_route(backend, device, dtype) -> Optional[str]:
+    """How ``lora_matmul``'s backward runs for a call on ``device`` in
+    ``dtype`` under ``backend``: None off the card (the plain f32
+    products, counted nowhere); ``"kernel"`` for bf16 where the forward
+    took the Hopper kernel (``lora_matmul_bwd`` for dx and dA's g_xa);
+    else ``"plain"`` (the plain products, counted in
+    ``lora_matmul_bwd.plain``)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    if dtype == torch.bfloat16 and dispatch.use_kernel(backend, device):
+        return "kernel"
+    return "plain"
+
+
 class _LoraMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, a, b, scaling, backend):
         ctx.save_for_backward(x, w, a, b)
-        ctx.scaling = scaling
+        ctx.scaling, ctx.backend = scaling, backend
         with span("kernel.lora_matmul"):
             return dispatch.get_kernel("lora_matmul", backend, x.device)(
                 x, w, a, b, scaling=scaling)
@@ -80,27 +101,48 @@ class _LoraMatmul(torch.autograd.Function):
     def backward(ctx, grad_out):
         """The products autograd through ``lora_matmul_ref`` runs, in f32,
         for the inputs that need a gradient; the forward's x @ W, which no
-        gradient needs, is not recomputed."""
+        gradient needs, is not recomputed. On the ``"kernel"`` route
+        (``backward_route``) dx and g_xa come from the Hopper kernel:
+        no f32 copy of W or dx, and g's f32 copy only for dW and dB."""
         with span("kernel.lora_matmul.backward"):
             x, w, a, b = ctx.saved_tensors
             need_x, need_w, need_a, need_b = ctx.needs_input_grad[:4]
-            g = grad_out.reshape(-1, w.shape[1]).float()
-            a32, b32 = a.float(), b.float()
-            g_lo = g * ctx.scaling                      # (M, N)
+            route = backward_route(ctx.backend, x.device, x.dtype)
             dx = dw = da = db = None
-            if need_w or need_a or need_b:
-                x2 = x.reshape(-1, x.shape[-1]).float()
-            if need_x or need_a:
-                g_xa = g_lo @ b32.t()                   # (M, r)
-            if need_x:
-                dx = (g @ w.float().t() + g_xa @ a32.t()).to(x.dtype)
-                dx = dx.reshape(x.shape)
-            if need_w:
-                dw = (x2.t() @ g).to(w.dtype)
-            if need_a:
-                da = (x2.t() @ g_xa).to(a.dtype)
-            if need_b:
-                db = ((x2 @ a32).t() @ g_lo).to(b.dtype)
+            if route == "kernel" and (need_x or need_a):
+                g2 = grad_out.reshape(-1, w.shape[1])
+                dx, g_xa = lora_matmul_bwd(g2, w, a, b, scaling=ctx.scaling,
+                                           dx=need_x)
+                if need_x:
+                    dx = dx.reshape(x.shape)
+                if need_w or need_a or need_b:
+                    x2 = x.reshape(-1, x.shape[-1]).float()
+                if need_w:
+                    dw = (x2.t() @ g2.float()).to(w.dtype)
+                if need_a:
+                    da = (x2.t() @ g_xa).to(a.dtype)
+                if need_b:
+                    g_lo = g2.float().mul_(ctx.scaling)
+                    db = ((x2 @ a.float()).t() @ g_lo).to(b.dtype)
+            else:
+                if route == "plain":
+                    lora_matmul_bwd.plain += 1
+                g = grad_out.reshape(-1, w.shape[1]).float()
+                a32, b32 = a.float(), b.float()
+                g_lo = g * ctx.scaling                      # (M, N)
+                if need_w or need_a or need_b:
+                    x2 = x.reshape(-1, x.shape[-1]).float()
+                if need_x or need_a:
+                    g_xa = g_lo @ b32.t()                   # (M, r)
+                if need_x:
+                    dx = (g @ w.float().t() + g_xa @ a32.t()).to(x.dtype)
+                    dx = dx.reshape(x.shape)
+                if need_w:
+                    dw = (x2.t() @ g).to(w.dtype)
+                if need_a:
+                    da = (x2.t() @ g_xa).to(a.dtype)
+                if need_b:
+                    db = ((x2 @ a32).t() @ g_lo).to(b.dtype)
         return dx, dw, da, db, None, None
 
 

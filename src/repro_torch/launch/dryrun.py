@@ -13,7 +13,10 @@ as on a Hopper card, and each hand kernel, which cannot run on ``meta``
 (it launches through ctypes), resolves through ``dispatch.meta_kernels``
 to a stand-in that makes its output and counts its FLOPs and bytes from
 the shapes, as the kernel bounds of ``chip_smoke.py`` do; its backward is
-the plain version's, as on the card. ``shape_counted_ops`` lists those
+the plain version's, as on the card, but for ``lora_matmul``'s input
+gradient, which the card runs on a bf16 kernel (``kernels/ops.py``
+``backward_route``) and meta tensors run as the plain f32 products, so
+``flops_by_dtype`` counts it in f32. ``shape_counted_ops`` lists those
 calls.
 
 What it counts, in one run of the step:

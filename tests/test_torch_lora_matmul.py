@@ -40,6 +40,7 @@ from repro.models import layers as JL
 from repro_torch.kernels import dispatch, ops, ref
 from repro_torch.kernels.lora_matmul import lora_matmul_fused
 from repro_torch.models import layers as PL
+from test_torch_lora_bwd_gpu import check_bf16, ordered
 
 # the module (``repro_torch.kernels.lora_matmul`` names the op function)
 lm = sys.modules["repro_torch.kernels.lora_matmul"]
@@ -328,6 +329,192 @@ def test_decode_path_never_takes_the_kernel_branch(monkeypatch):
                                 "float32")
     PL._proj(x, w, None, {"a": a, "b": b})
     assert asked == ["reference"]
+
+
+# ---------------------------------------------------------------------------
+# the input gradient's kernel: plan, route and arithmetic (host side)
+# ---------------------------------------------------------------------------
+
+#: (M, K, N) of the backward's calls beyond PATH_SHAPES (r 32): jamba's
+#: Mamba in_proj and out_proj at the benchmark's 16 x 512 tokens,
+#: deepseek-v3's W_q_b and W_kv_b, whisper-tiny's W_q/W_v (4 x 448)
+BWD_SHAPES = PATH_SHAPES + [(8192, 4096, 16544), (8192, 8192, 4096),
+                            (8192, 1024, 1024), (8192, 1024, 512),
+                            (4096, 1536, 24576), (4096, 512, 32768),
+                            (1792, 384, 384)]
+
+
+@pytest.mark.parametrize("m,k,n", BWD_SHAPES)
+def test_plan_bwd_takes_the_wgmma_kernel_where_the_forward_does(m, k, n):
+    p = lm.plan_bwd(m, k, n, 32, torch.bfloat16)
+    assert p.variant == "wgmma"
+    assert p.padded == lm.plan(m, k, n, 32, torch.bfloat16).padded is False
+    assert (p.k_pad, p.n_pad, p.r_a, p.r_pad) == (k, n, 32, 64)
+    assert p.block_n == 128
+    assert p.grid == (-(-m // 128) * -(-k // 128), 1)
+    assert p.prepass_grid == (-(-m // 32), 1)
+
+
+def test_plan_bwd_pads_ragged_shapes_and_takes_bf16_only():
+    p = lm.plan_bwd(333, 1001, 777, 96, torch.bfloat16)
+    assert p.padded and (p.k_pad, p.n_pad, p.r_a, p.r_pad) == (1008, 784,
+                                                               96, 128)
+    assert p.prepass_grid == (11, 2) and p.grid == (3 * 8, 1)
+    assert not lm.plan_bwd(333, 200, 136, 8, torch.bfloat16).padded
+    with pytest.raises(ValueError, match="bf16"):
+        lm.plan_bwd(64, 64, 64, 8, torch.float32)
+    with pytest.raises(ValueError, match="empty"):
+        lm.plan_bwd(0, 64, 64, 8, torch.bfloat16)
+
+
+def test_pad_bwd_operands_zero_pads_exactly():
+    """g, w and b padded along N, a along r: the plain dx and g_xa of the
+    padded operands equal the unpadded ones; K is left as it is."""
+    _, (x, w, a, b) = _operands(("pad-bwd",), (5, 13), 13, 11, 3, "float32")
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (5, 11)).astype(np.float32))
+    p = lm.plan_bwd(5, 13, 11, 3, torch.bfloat16)
+    gp, wp, ap, bp = lm.pad_bwd_operands(p, g, w, a, b)
+    assert gp.shape == (5, 16) and wp.shape == (13, 16)
+    assert ap.shape == (13, 8) and bp.shape == (3, 16)
+    assert torch.equal(gp @ bp.t(), g @ b.t())
+    assert torch.equal(gp @ wp.t() + (gp @ bp.t()) @ ap[:, :3].t(),
+                       g @ w.t() + (g @ b.t()) @ a.t())
+    assert not gp[:, 11:].any() and not wp[:, 11:].any()
+    assert not bp[:, 11:].any() and not ap[:, 3:].any()
+
+
+def test_backward_route(monkeypatch):
+    """bf16 on a Hopper card under auto/pallas takes the kernel; f32 and
+    ``reference`` on the card the plain products; off the card, no route
+    (the plain products, counted nowhere)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda device=None: (9, 0))
+    for backend in ("auto", "pallas"):
+        assert ops.backward_route(backend, "cuda", bf16) == "kernel"
+        assert ops.backward_route(backend, "cuda", f32) == "plain"
+        assert ops.backward_route(backend, "cpu", bf16) is None
+    assert ops.backward_route("reference", "cuda", bf16) == "plain"
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda device=None: (8, 0))
+    with pytest.raises(RuntimeError, match="capability"):
+        ops.backward_route("auto", "cuda", bf16)
+
+
+def _split3(v):
+    """The kernel's split of f32 ``v`` into three bf16 terms (round to
+    nearest even, each from what the ones before it left)."""
+    hi = v.to(torch.bfloat16)
+    rest = v - hi.float()
+    mid = rest.to(torch.bfloat16)
+    return hi, mid, (rest - mid.float()).to(torch.bfloat16)
+
+
+def _kernel_dx(g2, w, a, b, scaling, split=True):
+    """The input-gradient kernel's arithmetic in plain PyTorch: g_xa =
+    scaling * (g @ b.T) in f32; the f32 accumulator takes the rank product
+    of its three bf16 terms (or of g_xa rounded once to bf16, what the
+    split avoids), then g @ w.T; one rounding. Returns (dx, g_xa)."""
+    g_xa = scaling * (g2.float() @ b.float().t())
+    terms = _split3(g_xa) if split else (g_xa.to(torch.bfloat16),)
+    acc = sum(t.float() @ a.float().t() for t in terms)
+    return (acc + g2.float() @ w.float().t()).to(g2.dtype), g_xa
+
+
+def test_split_terms_sum_to_every_f32_value_exactly():
+    """Exact down to |v| = 2**-110, where the third term, a multiple of
+    v's f32 ulp, is still a bf16 value (bf16's least step is 2**-133);
+    below, off by less than that step."""
+    v = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        200_000).astype(np.float32))
+    v = torch.cat([v, v * 1e-30, v * 1e30, v * 3e-5,
+                   torch.tensor([0.0, -0.0, 1.0, 2.0 ** -110, 2.0 ** -126])])
+    hi, mid, lo = _split3(v)
+    err = ((hi.double() + mid.double()) + lo.double() - v.double()).abs()
+    normal = v.abs() >= 2.0 ** -110
+    assert normal.sum() > 790_000 and not err[normal].any()
+    assert float(err.max()) < 2.0 ** -133
+
+
+def test_rank_term_at_f32_precision_keeps_dx_bit_equal():
+    """The kernel's arithmetic (three bf16 terms of g_xa) leaves >= 99% of
+    dx's bf16 elements bit-equal to the plain f32 backward's and the rest
+    one bf16 step away; g_xa rounded once to bf16 does not (B random, s
+    not a power of two, so the rank term is as large as g @ w.T)."""
+    m, k, n, r, s = 256, 96, 512, 32, 0.7
+    rng = np.random.default_rng(7)
+
+    def rand(*shape, std=1.0):
+        return torch.from_numpy((std * rng.standard_normal(shape)).astype(
+            np.float32)).to(torch.bfloat16)
+    g, w = rand(m, n), rand(k, n, std=k ** -0.5)
+    a, b = rand(k, r, std=k ** -0.5), rand(r, n, std=r ** -0.5)
+    g32 = g.float()
+    g_xa = (g32 * s) @ b.float().t()
+    want = (g32 @ w.float().t() + g_xa @ a.float().t()).to(g.dtype)
+    got, got_xa = _kernel_dx(g, w, a, b, s)
+    check_bf16(got, want)
+    torch.testing.assert_close(got_xa, g_xa, rtol=1e-5, atol=1e-5)
+    once, _ = _kernel_dx(g, w, a, b, s, split=False)
+    assert float((ordered(once) == ordered(want)).float().mean()) < 0.95
+
+
+def _bwd_case(dtype):
+    (_, _, _, _), (x, w, a, b) = _operands(("route", dtype), (2, 6, 32), 32,
+                                           24, 4, dtype)
+    g = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (2, 6, 24)).astype(np.float32)).to(getattr(torch, dtype))
+    leaves = [x.clone().requires_grad_(True), w,
+              a.clone().requires_grad_(True), b.clone().requires_grad_(True)]
+    return leaves, g
+
+
+def _grads(leaves, g, scaling=1.5):
+    out = ops.lora_matmul(*leaves, scaling=scaling)
+    return torch.autograd.grad(out, [leaves[0], leaves[2], leaves[3]], g)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_backward_takes_the_kernel_entry_for_bf16_on_the_card(monkeypatch,
+                                                              dtype):
+    """With the route resolved as on a Hopper card (CPU tensors, so the
+    kernel entry is a plain emulation of its arithmetic that counts as the
+    wrapper does): bf16 calls the entry once a backward; f32 runs the
+    plain products and counts ``plain`` on the entry; dA comes from the
+    entry's g_xa, dB stays the plain product; on the CPU itself nothing is
+    counted."""
+    leaves, g = _bwd_case(dtype)
+    plain = _grads(leaves, g)                      # off the card: no route
+    lm.reset_counts()
+    assert (lm.lora_matmul_bwd.launches, lm.lora_matmul_bwd.plain) == (0, 0)
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda device=None: (9, 0))
+    real = ops.backward_route
+    monkeypatch.setattr(ops, "backward_route",
+                        lambda backend, device, dt: real(backend, "cuda", dt))
+    calls = []
+
+    def entry(g2, w, a, b, *, scaling, dx):
+        calls.append((tuple(g2.shape), scaling, dx))
+        entry.launches += 1
+        return _kernel_dx(g2, w, a, b, scaling)
+    entry.launches = entry.plain = 0
+    monkeypatch.setattr(ops, "lora_matmul_bwd", entry)
+    got = _grads(leaves, g)
+    counted = (entry.launches, entry.plain)
+    assert (lm.lora_matmul_bwd.launches, lm.lora_matmul_bwd.plain) == (0, 0)
+    x2 = leaves[0].detach().reshape(-1, 32).float()
+    if dtype == "bfloat16":
+        assert calls == [((12, 24), 1.5, True)] and counted == (1, 0)
+        dx, g_xa = _kernel_dx(g.reshape(12, 24), *leaves[1:], 1.5)
+        assert torch.equal(got[0], dx.reshape(2, 6, 32))
+        assert torch.equal(got[1], (x2.t() @ g_xa).to(torch.bfloat16))
+        assert torch.equal(got[2], plain[2])
+    else:
+        assert calls == [] and counted == (0, 1)
+        for gt, wp in zip(got, plain):
+            assert torch.equal(gt, wp)
 
 
 # ---------------------------------------------------------------------------
