@@ -1,7 +1,8 @@
 """The benchmark's data, found by name: ``BENCHMARK.json`` at the root of
-the checkout, a configuration in ``configs/<name>.json``, a traffic mix in
-``traffic/<name>.json`` naming its runner (``runners/<runner>.py``), a
-per-layer metric's reader in ``metrics/<name>.py`` (or a family reader,
+the checkout, a configuration in ``configs/<name>.json`` naming its plain
+reference ``reference/<module>.py`` (``fedbench.reference``), a traffic
+mix in ``traffic/<name>.json`` naming its runner (``runners/<runner>.py``),
+a per-layer metric's reader in ``metrics/<name>.py`` (or a family reader,
 see ``fedbench.metrics``), a kernel's counts in ``kernels/<registry
 name>.py`` and a cell's limits in ``limits/<workload>.json``."""
 from __future__ import annotations
@@ -35,8 +36,8 @@ class Bench:
 
     def __init__(self, here: Path = HERE, bench_json: Optional[Path] = None):
         self.here = Path(here)
-        self.doc = json.loads(Path(bench_json or ROOT / "BENCHMARK.json")
-                              .read_text())
+        self.bench_json = Path(bench_json or ROOT / "BENCHMARK.json")
+        self.doc = json.loads(self.bench_json.read_text())
 
     def workload(self, name: str) -> dict:
         for w in self.doc["workloads"]:
@@ -47,6 +48,12 @@ class Bench:
 
     def config(self, name: str) -> dict:
         return json.loads((self.here / "configs" / f"{name}.json").read_text())
+
+    def reference(self, cfg_doc: dict) -> ModuleType:
+        """The reference module the configuration ``cfg_doc`` names."""
+        from fedbench.reference import module_for
+
+        return module_for(cfg_doc, self.here)
 
     def traffic(self, name: str) -> dict:
         return json.loads((self.here / "traffic" / f"{name}.json").read_text())

@@ -123,7 +123,8 @@ def main(argv=None, *, device="cuda", bench=None):
     lines = []
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
-        cell = fed.Cell(cfg_doc, traffic, seed, device, {})
+        cell = fed.Cell(cfg_doc, bench.reference(cfg_doc), traffic, seed,
+                        device, {})
         cap = fed.Capture(cell, fault=args.fault)
         with cap.installed():
             cell.job(round_progress=cap.on_round)
@@ -132,13 +133,14 @@ def main(argv=None, *, device="cuda", bench=None):
         del cap
         gc.collect()
         with fed._no_tf32():
-            ref = follow(cell.model, traffic, cell.params, cell.lora0,
-                         cell.corpus, seed, rec)
+            ref = follow(cell.reference, cell.model, traffic, cell.params,
+                         cell.lora0, cell.corpus, seed, rec)
             t2 = time.perf_counter()
             sides = [(args.fault or "program", check.numbers(rec, ref))]
             for lower in controls:
-                ctl = follow(cell.model, traffic, cell.params, cell.lora0,
-                             cell.corpus, seed, rec, lower=(lower,))
+                ctl = follow(cell.reference, cell.model, traffic,
+                             cell.params, cell.lora0, cell.corpus, seed, rec,
+                             lower=(lower,))
                 sides.append(("control_" + lower,
                               check.numbers(control_records(ctl), ref)))
         gaps = [g for r in ref["rounds"] for g in r["gaps"].values()]

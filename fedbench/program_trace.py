@@ -24,10 +24,11 @@ same ``kineto_results.events()`` over the span ``fedbench/cycle``, and
   span at the gap's middle (``none`` outside every span).
 
 :func:`readings` turns a summary into the per-layer numbers these spans
-were added for. The benchmark's traced run does not call this module
-(``fedbench/trace.py`` and ``runners/federated.py`` would); run it on
-its own to read a cell's spans, with the checks that the spans agree
-with the harness's own labels:
+were added for. The benchmark's traced cycle (``runners/federated.py``
+``Traced``) reads its events through :class:`Trace` too, and its metric
+files (``fedbench/metrics/``) read the summary from ``ctx.program``. Run
+this module on its own to read a cell's spans in full, with the checks
+that the spans agree with the harness's own labels:
 
     python3 fedbench/program_trace.py --workload <cell> --seed <n>
 
@@ -48,9 +49,8 @@ ROOT = Path(__file__).resolve().parents[1]
 if not __package__:                 # run as a script: the checkout's root
     sys.path.insert(0, str(ROOT))
 
-from fedbench.trace import F32_GEMM, _annotation, _merge  # noqa: E402
+from fedbench.trace import F32_GEMM, PROGRAM, _merge, read  # noqa: E402
 
-PROGRAM = "repro_torch/"
 #: a backward node's event; its (fwd_thread_id, sequence_nr) name the
 #: forward op it differentiates
 BACKWARD = "autograd::engine::evaluate_function: "
@@ -86,25 +86,30 @@ class Trace:
     harness's spans, synchronizing calls and backward nodes."""
 
     def __init__(self, events):
+        self._load(read(events))
+
+    @classmethod
+    def from_read(cls, recs: List[tuple]) -> "Trace":
+        """The trace of events already read (``fedbench.trace.read``)."""
+        trace = cls.__new__(cls)
+        trace._load(recs)
+        return trace
+
+    def _load(self, recs: List[tuple]):
         dev, launch, op_start, fwd = [], {}, {}, {}
         self.spans: List[tuple] = []      # (start, end, name, thread)
         self.harness: List[tuple] = []    # (start, end, name)
         self.syncs: List[int] = []
         nodes = []                        # (start, end, fwd thread, seq)
         self.window: Optional[Tuple[int, int]] = None
-        for e in events:
-            name = e.name()
-            a, b = e.start_ns(), e.end_ns()
-            if e.device_type().name in ("CUDA", "PrivateUse1"):
-                if b > a and not name.startswith(
-                        ("fedbench", "ProfilerStep", PROGRAM)) \
-                        and not _annotation(e):
-                    dev.append((a, b, name, e.correlation_id(),
-                                e.linked_correlation_id()))
+        for rec in recs:
+            name, a, b = rec[1], rec[2], rec[3]
+            if rec[0]:
+                if not name.startswith(PROGRAM):
+                    dev.append((a, b, name, rec[4], rec[5]))
                 continue
             if name.startswith(PROGRAM):
-                self.spans.append((a, b, name[len(PROGRAM):],
-                                   e.start_thread_id()))
+                self.spans.append((a, b, name[len(PROGRAM):], rec[7]))
             elif name == "fedbench/cycle":
                 self.window = (a, b)
             elif name.startswith("fedbench/"):
@@ -112,21 +117,21 @@ class Trace:
             elif name.startswith("fedbench."):
                 continue
             elif name.startswith(BACKWARD):
-                if e.sequence_nr() >= 0:
-                    nodes.append((a, b, e.fwd_thread_id(), e.sequence_nr()))
+                if rec[5] >= 0:
+                    nodes.append((a, b, rec[6], rec[5]))
             elif "Launch" in name or name.startswith(("cudaMemcpy",
                                                        "cudaMemset")):
-                launch[e.correlation_id()] = a
+                launch[rec[4]] = a
                 if SYNC.match(name):
                     self.syncs.append(a)
             elif SYNC.match(name):
                 self.syncs.append(a)
             else:
-                op_start.setdefault(e.correlation_id(), a)
-                if e.sequence_nr() >= 0 and e.fwd_thread_id() == 0:
+                op_start.setdefault(rec[4], a)
+                if rec[5] >= 0 and rec[6] == 0:
                     # the latest op of a key made the node: a custom
                     # Function under no_grad records the number it peeks
-                    key = (e.start_thread_id(), e.sequence_nr())
+                    key = (rec[7], rec[5])
                     fwd[key] = max(a, fwd.get(key, a))
         if self.window is None:
             self.ops: List[tuple] = []
@@ -269,43 +274,30 @@ def main(argv=None) -> int:
         sys.path.insert(0, str(ROOT / "src"))
     import torch
 
-    from fedbench import trace as T
     from fedbench.bench import Bench
-    from repro_torch.analysis import tracing
 
     bench = Bench()
     cell_doc = bench.workload(args.workload)
+    cfg_doc = bench.config(cell_doc["config"])
     traffic = bench.traffic(cell_doc["traffic"])
     runner = bench.runner(traffic)
     if args.device == "cuda":
         torch.cuda.set_device(0)
     torch.set_num_threads(min(4, torch.get_num_threads()))
-    cell = runner.Cell(bench.config(cell_doc["config"]), traffic, args.seed,
+    cell = runner.Cell(cfg_doc, bench.reference(cfg_doc), traffic, args.seed,
                        args.device, {})
     cell.job(k_local=traffic["warmup_k_local"])
-    seen = {}
-    summarize = T.summarize
-
-    def both(events):
-        seen["trace"] = Trace(events)
-        return summarize(events)
-    tracing.reset_counters()
     traced = runner.Traced(cell, bench.kernel_files())
-    T.summarize = both
-    try:
-        traced.run()
-    finally:
-        T.summarize = summarize
-    old, trace = traced.summary, seen["trace"]
-    prog = trace.summary()
+    traced.run()
+    old, prog = traced.summary, traced.program
     out = {"workload": args.workload, "seed": args.seed,
            "window_s": old.get("window_s"), "busy_s": old.get("busy_s"),
            "idle_gaps": old.get("idle_gaps"),
            "readings": dict(readings(prog, old.get("busy_s")),
                             moe_dropped_pct=bench.reader(
-                                "moe_dropped_pct")(None)),
-           "agreement": agreement(trace, old, prog),
-           "counters": tracing.counters(), **prog}
+                                "moe_dropped_pct")(traced)),
+           "agreement": agreement(traced.trace, old, prog),
+           "counters": traced.counters, "read_s": traced.read_s, **prog}
     path = ROOT / "build" / "fedbench" / \
         f"program-{args.workload}-{args.seed}.json"
     path.parent.mkdir(parents=True, exist_ok=True)

@@ -16,13 +16,14 @@ aggregate is checked from the program's own client results.
 """
 from __future__ import annotations
 
+from types import ModuleType
 from typing import Dict, List
 
 import torch
 
 from fedbench import data as D
 from fedbench.reference import devft as R
-from fedbench.reference.model import Model, adamw, grads
+from fedbench.reference.model import adamw, grads
 
 
 def stage_plan(model: dict, spec: dict) -> List[tuple]:
@@ -51,9 +52,11 @@ def _identity(blocks: dict) -> Dict[str, list]:
             for n, s in blocks.items()}
 
 
-def follow(model: dict, traffic: dict, params: dict, lora0: dict,
-           corpus: dict, seed: int, prog: dict, lower=()) -> dict:
-    """The reference's records of the job ``prog`` records (see
+def follow(reference: ModuleType, model: dict, traffic: dict, params: dict,
+           lora0: dict, corpus: dict, seed: int, prog: dict, lower=()) -> dict:
+    """The reference's records, through the configuration's reference
+    module ``reference`` (``fedbench.reference.module_for``), of the job
+    ``prog`` records (see
     ``fedbench.runners.federated.Capture``): per round the groups, the
     fused LoRA, the followed steps' losses, the first one's gradient, the
     LoRA after the steps, and the eval loss of the program's aggregate; per
@@ -63,7 +66,8 @@ def follow(model: dict, traffic: dict, params: dict, lora0: dict,
     bf16; ``state``, bf16 LoRA, gradients and AdamW moments for f32."""
     spec = traffic["spec"]
     beta = spec.get("beta", 0.1)
-    ref = Model(model, params, beta=beta, quantize="weights" in lower)
+    ref = reference.Model(model, params, beta=beta,
+                          quantize="weights" in lower)
 
     def low(tree):
         """The control's LoRA state in bf16."""

@@ -16,6 +16,9 @@ again in the backward (``torch.utils.checkpoint``), so at most one
 layer's f32 weights live at a time. ``quantize`` rounds each frozen
 weight matrix to float8 e4m3 with a per-matrix scale first: the
 lower-precision control.
+
+``per_token`` counts the floating-point operations of these layers (see
+``fedbench.reference`` for the module contract).
 """
 from __future__ import annotations
 
@@ -277,17 +280,95 @@ def block(p, model, kind, x, cos, sin, lora):
 
 
 # ---------------------------------------------------------------------------
+# operations
+# ---------------------------------------------------------------------------
+# Counted from the shapes: frozen weights get no weight gradient (their
+# backward is the input gradient alone, as many operations as their
+# forward), LoRA factors get both, only the top-k experts run, causal
+# attention counts half the score matrix, the SSD scan its chunked work,
+# and nothing is recomputed.
+
+def _attention_flops(m: dict, s: int, r: int):
+    d, h, hkv = m["d_model"], m["n_heads"], m["n_kv_heads"]
+    hd = m.get("head_dim") or d // h
+    frozen = 2 * d * (h * hd + 2 * hkv * hd) + 2 * h * hd * d
+    lora = 2 * r * (d + h * hd) + 2 * r * (d + hkv * hd)
+    scores = 2 * h * hd * s          # QK^T and PV over the causal half
+    return frozen, lora, scores
+
+
+def _mamba_flops(m: dict, s: int, r: int):
+    mb, d = m["mamba"], m["d_model"]
+    din = mb["expand"] * d
+    h = din // mb["head_dim"]
+    gn = mb["n_groups"] * mb["d_state"]
+    n_in = 2 * din + 2 * gn + h
+    frozen = 2 * d * n_in + 2 * din * d + 2 * mb["conv_width"] * (din + 2 * gn)
+    lora = 2 * r * (d + n_in) + 2 * r * (din + d)
+    q = min(mb["chunk"], s)
+    scan = h * (q * (mb["d_state"] + mb["head_dim"])
+                + 4 * mb["head_dim"] * mb["d_state"])
+    return frozen, lora, scan
+
+
+def _ffn_flops(m: dict, kind: str):
+    d = m["d_model"]
+    if kind.endswith("moe"):
+        mo = m["moe"]
+        return 2 * d * mo["n_experts"] + mo["top_k"] * 6 * d * mo["d_ff_expert"]
+    return 6 * d * m["d_ff"]
+
+
+def per_token(m: dict, sizes: Dict[str, int], s: int, r: int):
+    """(forward, backward) operations a token of a sequence of ``s``
+    takes through a (sub)model of ``sizes`` layers per stack."""
+    fwd = bwd = 0.0
+    for name, kind in stack_kinds(m).items():
+        n = sizes.get(name, 0)
+        if kind.startswith("mamba"):
+            frozen, lora, seq = _mamba_flops(m, s, r)
+        else:
+            frozen, lora, seq = _attention_flops(m, s, r)
+        if kind != "mamba_only":
+            frozen += _ffn_flops(m, kind)
+        fwd += n * (frozen + lora + seq)
+        bwd += n * (frozen + 2 * lora + 2 * seq)
+    head = 2 * m["d_model"] * padded_vocab(m)
+    return fwd + head, bwd + head
+
+
+# ---------------------------------------------------------------------------
 # the loss
 # ---------------------------------------------------------------------------
 
 class Model:
     """The f32 reference over the base ``params`` (any dtype) of the
-    configuration's ``model`` section."""
+    configuration's ``model`` section. A module with other layers
+    subclasses it and overrides ``stack_kinds``, ``execution_order``,
+    ``positions`` and ``block``."""
 
     def __init__(self, model: dict, params: dict, beta: float = 0.1,
                  quantize: bool = False):
         self.model, self.params = model, params
         self.beta, self.quantize = beta, quantize
+
+    def stack_kinds(self) -> Dict[str, str]:
+        return stack_kinds(self.model)
+
+    def execution_order(self, sizes: Dict[str, int]):
+        return execution_order(self.model, sizes)
+
+    def positions(self, s: int, device):
+        """What every block gets for the positions of a sequence of
+        ``s``: the RoPE tables (cos, sin)."""
+        model = self.model
+        hd = model.get("head_dim") or model["d_model"] // model["n_heads"]
+        return rope(s, hd, model["rope_theta"], device)
+
+    def block(self, p, kind, x, pos, lora):
+        """One layer of ``kind`` with the f32 weights ``p``: (x, aux)."""
+        cos, sin = pos
+        return block(p, self.model, kind, x, cos, sin, lora)
 
     def _top(self, name):
         w = self.params[name].float()
@@ -304,13 +385,11 @@ class Model:
         tokens = torch.as_tensor(batch["tokens"]).to(dev).long()
         labels = torch.as_tensor(batch["labels"]).to(dev).long()
         x = self._top("embed")[tokens]
-        s = tokens.shape[1]
-        hd = model.get("head_dim") or model["d_model"] // model["n_heads"]
-        cos, sin = rope(s, hd, model["rope_theta"], dev)
-        kinds = stack_kinds(model)
+        pos = self.positions(tokens.shape[1], dev)
+        kinds = self.stack_kinds()
         sizes = {name: len(groups) for name, groups in sub.items()}
         aux = torch.zeros((), dtype=torch.float32, device=dev)
-        for name, i in execution_order(model, sizes):
+        for name, i in self.execution_order(sizes):
             group = sub[name][i]
             lo = None
             if lora and name in lora:
@@ -319,7 +398,7 @@ class Model:
             def body(xc, lo, name=name, group=group):
                 p = fused_layer(self.params["blocks"][name], group,
                                 self.beta, self.quantize)
-                return block(p, model, kinds[name], xc, cos, sin, lo)
+                return self.block(p, kinds[name], xc, pos, lo)
             x, a = checkpoint(body, x, lo, use_reentrant=False)
             aux = aux + a
         x = rms_norm(x, self._top("final_norm"), model["norm_eps"])

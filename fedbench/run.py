@@ -84,8 +84,8 @@ def main(argv=None, *, device: str = "cuda", bench=None) -> int:
     runner = bench.runner(traffic)
     phases = {"process_start_s": time.time() - t_start}
     t0 = time.perf_counter()
-    out = runner.run(cfg_doc, traffic, args.seed, args.seconds,
-                     bool(args.trace), device, phases,
+    out = runner.run(cfg_doc, bench.reference(cfg_doc), traffic, args.seed,
+                     args.seconds, bool(args.trace), device, phases,
                      bench.kernel_files(), bench.peaks(),
                      check.load_limits(bench.here, args.workload))
     setup_s = phases["process_start_s"] + (out["setup_end"] - t0)
@@ -106,6 +106,7 @@ def main(argv=None, *, device: str = "cuda", bench=None) -> int:
             {"label_s": summary["label_s"], "calls": {
                 k: len(v) for k, v in out["ctx"].calls.items()},
              "n_device_ops": summary["n_device_ops"],
+             "read_s": round(out["ctx"].trace_read_s, 2),
              "spans_s": {k: round(sum(v), 4) for k, v in
                          summary["spans_s"].items()}}), flush=True)
 

@@ -26,6 +26,7 @@ import dataclasses
 import math
 import time
 import typing
+from types import ModuleType
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -90,15 +91,17 @@ def _clone(tree):
 
 
 class Cell:
-    """Everything a run of one cell builds in set-up."""
+    """Everything a run of one cell builds in set-up; ``reference`` is the
+    configuration's reference module (``Bench.reference``)."""
 
-    def __init__(self, cfg_doc: dict, traffic: dict, seed: int, device: str,
-                 phases: Dict[str, float]):
+    def __init__(self, cfg_doc: dict, reference: ModuleType, traffic: dict,
+                 seed: int, device: str, phases: Dict[str, float]):
         from repro_torch.data.synthetic import FederatedData
         from repro_torch.kernels import build
 
         self.doc, self.traffic, self.seed, self.device = (cfg_doc, traffic,
                                                           seed, device)
+        self.reference = reference
         self.model = cfg_doc["model"]
         self.dtype = getattr(torch, self.model["dtype"])
         t = time.perf_counter()
@@ -404,7 +407,8 @@ class Window:
         from fedbench.flops import round_flops
 
         cell = self.cell
-        return sum(round_flops(cell.model, cell.stack_sizes(r["capacity"]),
+        return sum(round_flops(cell.reference, cell.model,
+                               cell.stack_sizes(r["capacity"]),
                                cell.traffic["spec"], cell.n_sample,
                                cell.traffic["eval_batch"],
                                cell.doc["lora"]["rank"])
@@ -436,14 +440,22 @@ def stage_weighted_rate(rounds: List[dict], plan: List[tuple],
 
 class Traced:
     """One more job under ``torch.profiler``, with the harness spans and
-    the registry kernels labelled and their calls recorded (see
-    ``fedbench.trace``)."""
+    the registry kernels labelled and their calls recorded. Its readings:
+    ``summary``, the harness's (``fedbench.trace.summarize``); ``trace``
+    and ``program``, the program's own spans (``fedbench.program_trace``:
+    the ``Trace`` and its summary); ``counters``, the program's counters
+    over the cycle (``repro_torch.analysis.tracing.counters``); and
+    ``read_s``, the seconds spent reading them."""
 
     def __init__(self, cell: Cell, kernel_files: Dict[str, Any]):
         self.cell, self.kernel_files = cell, kernel_files
         self.calls: Dict[str, list] = {k: [] for k in kernel_files}
         self.stage_entry_s: List[float] = []
         self.summary: Dict = {}
+        self.trace = None
+        self.program: Dict = {}
+        self.counters: Dict = {}
+        self.read_s = 0.0
 
     def _kernel_patches(self):
         from repro_torch.kernels import dispatch
@@ -467,8 +479,10 @@ class Traced:
     def run(self):
         from torch.profiler import ProfilerActivity, profile, record_function
 
+        from repro_torch.analysis import tracing
         from repro_torch.federated import simulator
-        from fedbench.trace import summarize
+        from fedbench.program_trace import Trace
+        from fedbench.trace import read, summarize_read
 
         cell, me = self.cell, self
         dev = cell.device
@@ -518,6 +532,7 @@ class Traced:
                      (runner_cls, "_eval", span("eval", evaluate)),
                      *self._kernel_patches()):
             _sync(dev)
+            tracing.reset_counters()
             with profile(activities=acts) as prof:
                 with record_function("fedbench/cycle"):
                     current[0] = record_function("fedbench/round")
@@ -525,7 +540,13 @@ class Traced:
                     cell.job(round_progress=boundary)
                     current[0].__exit__(None, None, None)
                     _sync(dev)
-        self.summary = summarize(prof.profiler.kineto_results.events())
+        t = time.perf_counter()
+        self.counters = tracing.counters()
+        recs = read(prof.profiler.kineto_results.events())
+        self.summary = summarize_read(recs)
+        self.trace = Trace.from_read(recs)
+        self.program = self.trace.summary()
+        self.read_s = time.perf_counter() - t
 
 
 class _Item:
@@ -546,14 +567,16 @@ class _Item:
 # ---------------------------------------------------------------------------
 
 class Context:
-    """What the per-layer readers read (``fedbench/metrics``)."""
+    """What the per-layer readers read (``fedbench/metrics``): ``trace``,
+    ``calls``, ``program`` and ``counters`` are a ``Traced`` cycle's
+    readings (empty without one)."""
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
 
 
-def run(cfg_doc: dict, traffic: dict, seed: int, seconds: float,
-        trace: bool, device: str, phases: Dict[str, float],
+def run(cfg_doc: dict, reference: ModuleType, traffic: dict, seed: int,
+        seconds: float, trace: bool, device: str, phases: Dict[str, float],
         kernel_files: Dict[str, Any], peaks: dict, limits: Dict[str, float]
         ) -> dict:
     """Set-up, the window, the traced cycle (``trace``), then the check.
@@ -564,7 +587,7 @@ def run(cfg_doc: dict, traffic: dict, seed: int, seconds: float,
     from fedbench import check
     from fedbench.reference.fed import follow
 
-    cell = Cell(cfg_doc, traffic, seed, device, phases)
+    cell = Cell(cfg_doc, reference, traffic, seed, device, phases)
     t = time.perf_counter()
     cell.job(k_local=traffic["warmup_k_local"])
     _sync(device)
@@ -577,16 +600,17 @@ def run(cfg_doc: dict, traffic: dict, seed: int, seconds: float,
     failed = sum(1 for r in win.rounds if not math.isfinite(r["eval"]))
     e2e = {"train_tokens_per_s": win.rate(),
            "peak_mem_gib": win.peak_bytes / 2 ** 30}
-    traced = None
+    traced = Traced(cell, kernel_files)
     if trace:
-        traced = Traced(cell, kernel_files)
         traced.run()
     ctx = Context(method=traffic["spec"]["method"],
                   window_s=win.seconds_measured(), window_flops=win.flops(),
-                  trace=traced.summary if traced else {},
-                  calls=traced.calls if traced else {},
-                  stage_entry_s=traced.stage_entry_s if traced else [],
+                  trace=traced.summary, calls=traced.calls,
+                  program=traced.program, counters=traced.counters,
+                  trace_read_s=traced.read_s,
+                  stage_entry_s=traced.stage_entry_s,
                   kernel_files=kernel_files, peaks=peaks)
+    del traced
 
     records = capture.records()
     del capture
@@ -595,8 +619,8 @@ def run(cfg_doc: dict, traffic: dict, seed: int, seconds: float,
         torch.cuda.empty_cache()
     t = time.perf_counter()
     with _no_tf32():
-        ref = follow(cell.model, traffic, cell.params, cell.lora0,
-                     cell.corpus, seed, records)
+        ref = follow(cell.reference, cell.model, traffic, cell.params,
+                     cell.lora0, cell.corpus, seed, records)
     nums = check.numbers(records, ref)
     correct, checks = check.judge(nums, limits)
     return {"setup_end": setup_end, "e2e": e2e, "ctx": ctx,

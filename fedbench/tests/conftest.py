@@ -1,9 +1,12 @@
 """Shared pieces of the benchmark's CPU tests: the repo root and ``src`` on
-the path, one thread, and a copy of the benchmark's data at toy sizes."""
+the path, one thread, a copy of the benchmark's data at toy sizes, and a
+run of ``fedbench/run.py`` on the CPU in a process of its own."""
 from __future__ import annotations
 
 import json
+import os
 import shutil
+import subprocess
 import sys
 from pathlib import Path
 
@@ -64,3 +67,20 @@ def toy_bench(tmp_path):
 
     bj = toy_copy(tmp_path / "fb")
     return Bench(here=tmp_path / "fb", bench_json=bj)
+
+
+def run_cpu(bench, argv, fault=None):
+    """(exit code, standard output lines, standard error lines) of
+    ``fedbench/run.py`` with ``argv`` over ``bench``'s folder and
+    BENCHMARK.json on the CPU, in a fresh process that never imported JAX
+    (``run_cpu.py``); ``fault`` plants a fault in the program."""
+    cmd = [sys.executable, str(HERE / "tests" / "run_cpu.py"),
+           "--here", str(bench.here), "--bench-json", str(bench.bench_json)]
+    if fault:
+        cmd += ["--fault", fault]
+    env = dict(os.environ, PYTHONPATH=f"{ROOT}{os.pathsep}{ROOT / 'src'}",
+               OMP_NUM_THREADS="1")
+    out = subprocess.run(cmd + ["--", *argv], capture_output=True, text=True,
+                         cwd=ROOT, env=env, timeout=600)
+    return (out.returncode, out.stdout.splitlines(),
+            out.stderr.splitlines())

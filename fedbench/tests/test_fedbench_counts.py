@@ -8,7 +8,8 @@ import pytest
 import torch
 
 from fedbench.bench import Bench
-from fedbench.flops import per_token, round_flops
+from fedbench.flops import round_flops
+from fedbench.reference import model as M
 
 KERNELS = Bench().kernel_files()
 
@@ -71,7 +72,7 @@ def _model(**kw):
 
 def test_step_count_moe_layer_by_hand():
     m, s, r = _model(), 10, 2
-    fwd, bwd = per_token(m, {"layers": 1}, s, r)
+    fwd, bwd = M.per_token(m, {"layers": 1}, s, r)
     d, hd = 8, 4
     frozen = 2 * d * (2 * hd + 2 * hd) + 2 * 2 * hd * d   # q, k, v, o
     frozen += 2 * d * 4 + 2 * 6 * d * 6                   # router, top-2
@@ -85,8 +86,8 @@ def test_step_count_moe_layer_by_hand():
 def test_round_count_scales_with_clients_steps_and_eval():
     m = _model()
     spec = {"seq": 10, "k_local": 3, "local_batch": 2}
-    fwd, bwd = per_token(m, {"layers": 2}, 10, 2)
-    got = round_flops(m, {"layers": 2}, spec, 2, 4, 2)
+    fwd, bwd = M.per_token(m, {"layers": 2}, 10, 2)
+    got = round_flops(M, m, {"layers": 2}, spec, 2, 4, 2)
     assert got == 2 * 3 * 2 * 10 * (fwd + bwd) + 4 * 10 * fwd
 
 
@@ -94,5 +95,5 @@ def test_step_count_at_published_widths():
     """granite's full depth: ~1.8 GFLOP a token (forward + backward)."""
     doc = json.loads((Bench().here / "configs" /
                       "granite-moe-1b-a400m.json").read_text())
-    fwd, bwd = per_token(doc["model"], {"layers": 24}, 512, 32)
+    fwd, bwd = M.per_token(doc["model"], {"layers": 24}, 512, 32)
     assert 1.7e9 < fwd + bwd < 1.9e9

@@ -61,7 +61,8 @@ def test_a_reduced_run_loads_no_jax():
         doc = bench.workload("granite-moe-1b.devft")
         tr = bench.traffic(doc["traffic"])
         fed = bench.runner(tr)
-        cell = fed.Cell(bench.config(doc["config"]), tr, 1, "cpu", {})
+        cfg = bench.config(doc["config"])
+        cell = fed.Cell(cfg, bench.reference(cfg), tr, 1, "cpu", {})
         cell.job()
         import fedbench.reference.fed
     """)

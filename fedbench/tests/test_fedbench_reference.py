@@ -1,16 +1,18 @@
 """The plain reference against the port at toy sizes: one DevFT cycle on
 each configuration and FedIT rounds, the program in f32 so that the two
 agree to rounding; and the check's verdict on planted faults and on the
-float8 control, through the rest of a run."""
+float8 control, through the rest of a run (a process of its own,
+``conftest.run_cpu``)."""
 from __future__ import annotations
 
 import json
 
 import pytest
 
-from fedbench import check, run
+from fedbench import check
 from fedbench.calibrate import control_records
 from fedbench.reference.fed import follow
+from fedbench.tests.conftest import run_cpu
 
 CELLS = ("granite-moe-1b.devft", "jamba-8l.devft", "granite-moe-1b.fedit")
 
@@ -20,13 +22,14 @@ def _one_job(bench, workload, seed, fault=None, where=None):
     cfg_doc = bench.config(cell_doc["config"])
     traffic = bench.traffic(cell_doc["traffic"])
     fed = bench.runner(traffic)
-    cell = fed.Cell(cfg_doc, traffic, seed, "cpu", {})
+    cell = fed.Cell(cfg_doc, bench.reference(cfg_doc), traffic, seed, "cpu",
+                    {})
     cap = fed.Capture(cell, fault=fault, where=where)
     with cap.installed():
         cell.job(round_progress=cap.on_round)
     rec = cap.records()
-    ref = follow(cell.model, traffic, cell.params, cell.lora0, cell.corpus,
-                 seed, rec)
+    ref = follow(cell.reference, cell.model, traffic, cell.params,
+                 cell.lora0, cell.corpus, seed, rec)
     return cell, traffic, rec, ref
 
 
@@ -56,31 +59,16 @@ def test_reference_regroups_from_its_own_weights(toy_bench):
     assert check.numbers(rec, ref)["groups"] == 1
 
 
-def _run(bench, workload, monkeypatch, fault=None):
-    lines = []
-    if fault:
-        fed = bench.runner(bench.traffic(bench.workload(workload)["traffic"]))
-        init = fed.Capture.__init__
-
-        def planted(self, cell, **_):
-            init(self, cell, fault=fault)
-        monkeypatch.setattr(fed.Capture, "__init__", planted)
-    monkeypatch.setattr("builtins.print",
-                        lambda *a, **k: lines.append(" ".join(map(str, a))))
-    rc = run.main(["--workload", workload, "--seed", "4294967377",
-                   "--seconds", "0.5", "--trace", "0"], device="cpu",
-                  bench=bench)
-    return rc, lines
-
-
 @pytest.mark.parametrize("workload", CELLS)
 @pytest.mark.parametrize("fault", [None, "half_batch", "frozen",
                                    "half_clients"])
-def test_check_catches_faults(toy_bench, monkeypatch, workload, fault):
+def test_check_catches_faults(toy_bench, workload, fault):
     """The rest of a run with the chip's look skipped: a sound run is
     correct; a fault planted in the program makes it not correct."""
-    rc, lines = _run(toy_bench, workload, monkeypatch, fault)
-    assert rc == 0
+    rc, lines, errs = run_cpu(toy_bench, [
+        "--workload", workload, "--seed", "4294967377", "--seconds", "0.5",
+        "--trace", "0"], fault=fault)
+    assert rc == 0, errs[-20:]
     result = json.loads(lines[-1])
     assert result["correct"] is (fault is None), result["checks"]
 
@@ -92,8 +80,8 @@ def test_control_is_not_correct(toy_bench, workload, lower):
     program's place (float8 weights; bf16 LoRA state) fails one of the
     cell's limits."""
     cell, traffic, rec, ref = _one_job(toy_bench, workload, 5)
-    ctl = follow(cell.model, traffic, cell.params, cell.lora0, cell.corpus,
-                 5, rec, lower=lower)
+    ctl = follow(cell.reference, cell.model, traffic, cell.params,
+                 cell.lora0, cell.corpus, 5, rec, lower=lower)
     limits = check.load_limits(toy_bench.here, workload)
     nums = check.numbers(control_records(ctl), ref)
     assert any(nums[k] > limits[k] for k in nums if k in limits), nums

@@ -6,6 +6,11 @@ of the kernels launched under each registry label.
 The harness marks its spans (``SPAN``) and each registry kernel call
 (``KERNEL``) with ``torch.profiler.record_function``; a device operation
 belongs to a label when the host launched it inside the label's range.
+
+:func:`read` takes from the profiler's events, once, the fields that
+this summary and the program's (``fedbench.program_trace.Trace``) use:
+each field is a call into the profiler's C++ side, and a traced cycle
+holds millions of events.
 """
 from __future__ import annotations
 
@@ -15,6 +20,8 @@ from typing import Dict, List, Tuple
 
 SPAN = "fedbench/"
 KERNEL = "fedbench.kernel/"
+#: the prefix of the program's own spans (``repro_torch.analysis.tracing``)
+PROGRAM = "repro_torch/"
 #: f32 cuBLAS GEMMs (SIMT/FFMA tiles): the plain f32 LoRA backward
 F32_GEMM = re.compile(r"sgemm|gemm_f32f32|f32f32_f32|ffma", re.I)
 
@@ -47,30 +54,57 @@ def _annotation(e) -> bool:
     return bool(flag()) if flag is not None else False
 
 
-def summarize(events, n_top: int = 10) -> Dict:
-    """The summary of ``profiler.kineto_results.events()`` over the span
-    ``fedbench/cycle``: busy and window seconds, the top device
-    operations, idle seconds by host span, device seconds by kernel label
-    and in f32 GEMMs, and the count of device operations."""
-    dev, spans, labels = [], [], []
-    launch, op_start = {}, {}
+def read(events) -> List[tuple]:
+    """The fields of ``profiler.kineto_results.events()`` the summaries
+    read, one tuple an event, in order: ``(True, name, start, end,
+    correlation id, linked correlation id)`` for a device operation
+    (positive length, no ``fedbench``/``ProfilerStep`` name, not an
+    annotation; other device events are left out), ``(False, name, start,
+    end, correlation id, sequence number, forward thread, thread)`` for a
+    host event, the forward thread read where the sequence number is set
+    and the thread for a program span or an op of the forward (else 0)."""
+    out: List[tuple] = []
     for e in events:
         name = e.name()
         a, b = e.start_ns(), e.end_ns()
         if e.device_type().name in ("CUDA", "PrivateUse1"):
             if b > a and not name.startswith(("fedbench", "ProfilerStep")) \
                     and not _annotation(e):
-                dev.append((a, b, name, e.correlation_id(),
+                out.append((True, name, a, b, e.correlation_id(),
                             e.linked_correlation_id()))
             continue
-        if name.startswith(KERNEL):
-            labels.append((a, b, name[len(KERNEL):]))
+        seq = e.sequence_nr()
+        fwd = e.fwd_thread_id() if seq >= 0 else 0
+        tid = e.start_thread_id() if name.startswith(PROGRAM) \
+            or (seq >= 0 and fwd == 0) else 0
+        out.append((False, name, a, b, e.correlation_id(), seq, fwd, tid))
+    return out
+
+
+def summarize(events, n_top: int = 10) -> Dict:
+    """The summary of ``profiler.kineto_results.events()`` over the span
+    ``fedbench/cycle``: busy and window seconds, the top device
+    operations, idle seconds by host span, device seconds by kernel label
+    and in f32 GEMMs, and the count of device operations."""
+    return summarize_read(read(events), n_top)
+
+
+def summarize_read(recs: List[tuple], n_top: int = 10) -> Dict:
+    """:func:`summarize` of events already :func:`read`."""
+    dev, spans, labels = [], [], []
+    launch, op_start = {}, {}
+    for rec in recs:
+        name, a = rec[1], rec[2]
+        if rec[0]:
+            dev.append((a, rec[3], name, rec[4], rec[5]))
+        elif name.startswith(KERNEL):
+            labels.append((a, rec[3], name[len(KERNEL):]))
         elif name.startswith(SPAN):
-            spans.append((name[len(SPAN):], a, b))
+            spans.append((name[len(SPAN):], a, rec[3]))
         elif "Launch" in name or name.startswith(("cudaMemcpy", "cudaMemset")):
-            launch[e.correlation_id()] = a
+            launch[rec[4]] = a
         else:
-            op_start.setdefault(e.correlation_id(), a)
+            op_start.setdefault(rec[4], a)
     cycle = [(a, b) for n, a, b in spans if n == "cycle"]
     if not cycle or not dev:
         return {}
