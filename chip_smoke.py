@@ -61,10 +61,15 @@ order:
    d7168 ff2048 with the fill (one 128-row tile holds an expert's 8
    rows); at the DevFT training shapes of jamba and deepseek:
    ``moe_expert_ffn`` E16 C640 d4096 ff14336 and E256 C160 d7168 ff2048
-   (the f32-inside version built 16 experts at a time) and at the ep
+   (the f32-inside version built 16 experts at a time), the
+   deepseek-v3-8l.devft cell's share E8 C8192 d7168 ff2048 with about
+   256 rows of each expert live (the fill), and at the ep
    path's E32 C2048 d1024 ff512 with the fill, ``lora_matmul``
    on jamba's in_proj, out_proj and W_v and deepseek's W_q_b and W_kv_b,
-   ``flash_attention`` at jamba's B4 S1024 H32/8 D128 and ``ssd_scan``
+   ``flash_attention`` at jamba's B4 S1024 H32/8 D128 and at MLA's
+   training shape B16 S512 H128 D192 (v's 128 columns zero-padded, as
+   ``attend`` pads them: ``mma_sync``, the padded outputs exactly zero),
+   and ``ssd_scan``
    at jamba's B4 S1024 H128 P64 N16; at the frontend orders' shapes:
    ``flash_attention`` non-causal at whisper's encoder B4 S1500 H6 D64
    (the first case, with the first design's time), whisper's decoder B4
@@ -126,14 +131,24 @@ order:
 5a. prefill vs decode: f32 at full width, mamba2 4 layers (S 300 across
    two chunks), granite 4 layers and jamba 8 (both at capacity factor
    E/k, so no token drops), deepseek's 3 dense MLA layers (prefill
-   expands k and v from the latent, decoding attends over it through
-   ``flash_decode`` at hd 576, vd 512), qwen2-vl's 2 layers (text) and
+   expands k and v from the latent and attends through
+   ``flash_attention`` with v padded to 192, decoding attends over it through
+   ``flash_decode`` at hd 576, vd 512), DeepSeek-V3 under its published
+   rules at 3 dense + 1 MoE layers (YaRN, the grouped sigmoid router
+   over 256 with 8 experts held, no drops), qwen2-vl's 2 layers (text) and
    whisper's 4 + 4 (decoding over the cross caches filled from
    ``encoder_kv``): prefill's last-token logits
    through ``ssd_scan``, ``flash_attention``, ``moe_expert_ffn`` and
    ``lora_matmul`` (a shared 2-D LoRA; exact launches, every kernel on
    its f32 variant) against teacher-forced decoding within 1e-3
    row-scaled;
+5b. DeepSeek-V3 under its published rules (``published_deepseek``, the
+   benchmark's deepseek-v3-8l settings) at full width, 3 dense + 1 MoE
+   layers, bf16, one loss and LoRA gradients at 16 x 512 tokens under a
+   profiler: exact launches (``flash_attention`` 4, all ``mma_sync``;
+   ``lora_matmul`` 8; ``moe_expert_ffn`` 1, ``wgmma`` with a fill), no
+   slot dropped, the held share of routed slots printed beside 8/256;
+   then the loss through the kernels against the plain path (1e-2);
 6. train: llama2-7b-proxy unreduced (32 layers, d 4096, 32/32 heads,
    ff 11008, vocab 32000), bf16, rank-32 f32 LoRA; after one untimed
    local step, three federated rounds of 2 clients x 2 local AdamW
@@ -210,7 +225,8 @@ order:
    layers (4 of 61; 29.7 GB): capacities 1, 2, 3, 4 over dense / moe
    (1, 1), (1, 1), (2, 1), (3, 1) (the MoE stack is never cut, so no
    stage copies its 22.5 GB of experts); ``lora_matmul`` 110 on W_q_b
-   and W_kv_b, ``moe_expert_ffn`` 20, MLA's attention plain as in JAX.
+   and W_kv_b, ``moe_expert_ffn`` 20, ``flash_attention`` 55 (MLA's
+   attention with v zero-padded to q/k's 192, ``mma_sync``).
 14. devft on qwen2-vl-7b at full width and depth (28 layers, 15.2 GB;
    text-only batches, as in the JAX package): capacities 4, 7, 14, 28;
    ``flash_attention`` 265 and ``lora_matmul`` 530; then one
@@ -1050,6 +1066,10 @@ FLASH_WHISPER_ENC = "whisper enc B4 S1500 H6 D64 full bf16"
 FLASH_WHISPER_DEC = "whisper dec B4 S448 H6 D64 causal bf16"
 FLASH_VL = "qwen2-vl B4 S1024 H28/4 D128 causal bf16"
 FLASH_VL_PREFIX = "qwen2-vl B4 S1280 H28/4 D128 causal bf16"
+#: MLA's training attention in the deepseek-v3-8l.devft cell (16 x 512
+#: tokens, 128 heads, q/k head dim 192): ``attend`` zero-pads v's 128 to
+#: 192, so the kernel runs ``mma_sync`` and the padded outputs are zero
+FLASH_MLA = "deepseek-v3 MLA B16 S512 H128 D192 v128 causal bf16"
 
 
 def _denominators(q, k, v, scale):
@@ -1071,26 +1091,27 @@ def _denominators(q, k, v, scale):
     return old, new
 
 
-def _check_flash_variant(flash_attention_bshd, tag):
+def _check_flash_variant(flash_attention_bshd, tag, variant="wgmma"):
     """Every flash_attention call since the last ``reset_counts`` ran the
-    wgmma kernel."""
+    ``variant`` kernel (``mma_sync`` for MLA's head dim of 192)."""
     fn = flash_attention_bshd
-    check(set(fn.variants) <= {"wgmma"}
-          and fn.variants["wgmma"] == fn.launches,
+    check(set(fn.variants) <= {variant}
+          and fn.variants[variant] == fn.launches,
           f"{tag}: flash_attention variants {dict(fn.variants)} of "
           f"{fn.launches} calls")
-    print(f"[{tag}] flash_attention: all {fn.launches} calls on the wgmma "
-          f"kernel")
+    print(f"[{tag}] flash_attention: all {fn.launches} calls on the "
+          f"{variant} kernel")
 
 
 def attention_phase(flash_attention_bshd, attention_bshd_ref,
-                    seed: int = 0):
+                    seed: int = 0, only=None):
     """flash_attention vs its plain version; the path shapes are one layer
     of the training step of llama2-7b-proxy and of granite-moe-1b-a400m
     (4 x 1024 tokens). Per case: the variant the call ran. At the path
     shapes also the first design (``mma_sync``) on the same inputs,
     TFLOP/s, the share of the bound and the host time of one call (four
-    TMA maps are encoded on the host)."""
+    TMA maps are encoded on the host). ``only``: the names of the cases
+    to run (all where None)."""
     from repro_torch.kernels.flash_attention import (library_smem_bytes,
                                                      plan, reset_counts,
                                                      run_plan)
@@ -1143,8 +1164,11 @@ def attention_phase(flash_attention_bshd, attention_bshd_ref,
         # 16 blocks: fewer than the card's SMs
         ("grid B1 S1024 H2 D128 causal bf16", 1, 1024, 2, 2, 128, True,
          None, bf16, "randn"),
+        # v's last 64 columns zero, as ``attend`` pads MLA's v
+        (FLASH_MLA, 16, 512, 128, 128, 192, True, None, bf16, "mla"),
     ] + [(case, b, sq, h, hkv, d, True, None, f32, "randn")
          for (b, sq, h, hkv, d), case in EXAMPLE_FLASH.items()]
+    cases = [c for c in cases if only is None or c[0] in only]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
     for name, b, s, h, hkv, d, causal, window, dt, inputs in cases:
@@ -1159,9 +1183,12 @@ def attention_phase(flash_attention_bshd, attention_bshd_ref,
         if inputs == "eye":
             v = torch.zeros_like(v)
             v[:, torch.arange(s), :, torch.arange(s)] = 1.0
+        if inputs == "mla":
+            v[..., 128:] = 0
         kw = dict(causal=causal, window=window)
         p = plan(b, s, h, hkv, d, dt, causal, window)
-        want_variant = "wgmma" if dt == bf16 else "fma_f32"
+        want_variant = "fma_f32" if dt != bf16 \
+            else "wgmma" if d in (64, 128) else "mma_sync"
         check(p.variant == want_variant, f"flash {name}: variant {p}")
         check(library_smem_bytes(p, d) == p.smem,
               f"flash {name}: the plan's shared memory {p.smem} is not the "
@@ -1180,6 +1207,9 @@ def attention_phase(flash_attention_bshd, attention_bshd_ref,
         check(row_err <= FLASH_ROW_TOL[dt],
               f"flash {name}: row-scaled error {row_err} > "
               f"{FLASH_ROW_TOL[dt]}")
+        if inputs == "mla":
+            check(bool((out[..., 128:] == 0).all()),
+                  f"flash {name}: the zero columns of v gave nonzero outputs")
         esz = q.element_size()
         bytes_moved = esz * (2 * q.numel() + k.numel() + v.numel())
         flops = 4 * d * b * h * _live_pairs(s, causal, window)
@@ -1595,6 +1625,46 @@ def parity_phase(seed: int = 0):
 
 
 #: prefill_vs_decode limit on the row-scaled error of the last-token
+#: DeepSeek-V3 under its published rules (``published_deepseek``)
+PUBLISHED_DEEPSEEK = "deepseek-v3 published"
+
+
+def published_deepseek(n_layers: int):
+    """deepseek-v3-671b's registry config cut to ``n_layers`` with
+    DeepSeek-V3's published rules switched on, as the benchmark's
+    ``fedbench/configs/deepseek-v3-8l.json`` sets them: the grouped
+    sigmoid router (8 groups, top 4, routed scale 2.5, the sequence-wise
+    loss at 1e-4, no drops), experts 0-7 of the router's 256 held, YaRN
+    (factor 40 over 4,096 positions, beta 32 / 1, mscale 1 / 1)."""
+    import dataclasses
+
+    from repro_torch.configs import RopeScaling, get_config
+
+    cfg = get_config("deepseek-v3-671b")
+    return dataclasses.replace(
+        cfg, n_layers=n_layers,
+        moe=dataclasses.replace(
+            cfg.moe, n_experts=8, scoring="sigmoid", n_group=8,
+            topk_group=4, routed_scale=2.5, router_aux_coef=1e-4,
+            n_routed=256, first_expert=0),
+        rope_scaling=RopeScaling(factor=40.0,
+                                 original_max_position_embeddings=4096,
+                                 beta_fast=32.0, beta_slow=1.0, mscale=1.0,
+                                 mscale_all_dim=1.0))
+
+
+def _random_bias(params, gen, std=0.01):
+    """Draw every ``e_score_correction_bias`` N(0, std²) in place, as the
+    benchmark's configuration does (zeros would leave selection to the
+    scores alone)."""
+    for key, val in params.items():
+        if isinstance(val, dict):
+            _random_bias(val, gen, std)
+        elif key == "e_score_correction_bias":
+            val.copy_(torch.randn(val.shape, generator=gen,
+                                  device=val.device) * std)
+
+
 #: logits, max |prefill - decode| / max |decode| per row, f32: the JAX
 #: package's limit for its SSD kernel against the sequential oracle
 #: (the chunked form takes exp of differences of cumulative sums, exact
@@ -1611,6 +1681,9 @@ PVD_VARIANTS = {"flash_decode_bhrd": "fma", "lora_matmul_fused": "fma_f32",
 #: deepseek-v3-671b's 3 layers are its dense MLA prefix (an empty MoE
 #: stack): prefill expands k and v from the latent, decoding attends over
 #: it in the absorbed formulation (``flash_decode`` at hd 576, vd 512).
+#: ``PUBLISHED_DEEPSEEK``'s 4 are 3 dense + 1 MoE layer under the
+#: published rules (YaRN in both paths' tables and scale, the grouped
+#: sigmoid router over 256 with 8 experts held, no drops in either path).
 #: qwen2-vl-7b runs text (M-RoPE with equal streams in both paths);
 #: whisper-tiny's 4 are its decoder layers, after its 4 encoder layers
 #: over 1500 frames: prefill runs the encoder inside the forward,
@@ -1620,12 +1693,13 @@ PVD_CASES = {
     "granite-moe-1b-a400m": (4, 2, 64),
     "jamba-v0.1-52b": (8, 2, 48),
     "deepseek-v3-671b": (3, 2, 48),
+    PUBLISHED_DEEPSEEK: (4, 2, 48),
     "qwen2-vl-7b": (2, 2, 48),
     "whisper-tiny": (4, 2, 48),
 }
 
 
-def prefill_vs_decode_phase(seed: int = 0):
+def prefill_vs_decode_phase(seed: int = 0, only=None):
     """f32 at full width, depth cut: prefill's last-token logits through
     the kernels (``ssd_scan``, ``flash_attention``, ``moe_expert_ffn``,
     and ``lora_matmul`` with a shared 2-D LoRA) against teacher-forced
@@ -1634,22 +1708,27 @@ def prefill_vs_decode_phase(seed: int = 0):
     MoE archs run at capacity factor E/k, so neither path drops a
     token. Every kernel runs its f32 variant (``PVD_VARIANTS``), so for
     mamba2 this holds the recurrence against ``ssd_scan``'s ``fma``
-    variant; the bf16 ``mma`` variant is held by the ssd phase."""
+    variant; the bf16 ``mma`` variant is held by the ssd phase. ``only``:
+    the ``PVD_CASES`` to run (all where None)."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
 
     for arch, (layers, b, s) in PVD_CASES.items():
+        if only is not None and arch not in only:
+            continue
         tag = f"prefill_vs_decode {arch}"
-        cfg = dataclasses.replace(get_config(arch), n_layers=layers,
-                                  dtype="float32")
+        cfg = dataclasses.replace(
+            published_deepseek(layers) if arch == PUBLISHED_DEEPSEEK
+            else get_config(arch), n_layers=layers, dtype="float32")
         if cfg.moe is not None:
             cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
                 cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
         torch.cuda.empty_cache()
         g = torch.Generator(device="cuda").manual_seed(seed)
         params = T.init_params(cfg, g)
+        _random_bias(params, g)
         lora = _nonzero_lora(T, cfg, g, 8, 0.02)
         kinds = T.stack_kinds(cfg)
         n_of = {kind: 0 for kind in T.PORTED_KINDS}
@@ -1677,7 +1756,7 @@ def prefill_vs_decode_phase(seed: int = 0):
         pre = {fn.__name__: fn.launches for fn in _path_kernels()}
         check(pre == {"flash_decode_bhrd": 0,
                       "lora_matmul_fused": 2 * (n_mamba + n_attn + n_mla),
-                      "flash_attention_bshd": n_attn + n_enc,
+                      "flash_attention_bshd": n_attn + n_enc + n_mla,
                       "moe_expert_ffn_ecd": n_moe,
                       "ssd_scan_bshp": n_mamba},
               f"{tag}: prefill launches {pre}")
@@ -1936,6 +2015,10 @@ MOE_DECODE_DEEPSEEK = "deepseek decode E256 C8 d7168 ff2048 bf16"
 #: of 256, capacity 160)
 MOE_JAMBA = "jamba train E16 C640 d4096 ff14336 bf16"
 MOE_DEEPSEEK = "deepseek train E256 C160 d7168 ff2048 bf16"
+#: the deepseek-v3-8l.devft cell's MoE layer: 8 held experts of 256, a row
+#: for every one of the 16 x 512 tokens (no drops), about 8192 x 8 / 256
+#: = 256 rows of each live (the fill)
+MOE_DEEPSEEK_SHARE = "deepseek-v3-8l train E8 C8192 d7168 ff2048 bf16"
 #: moe_block_ep's buffers in granite-moe-1b-a400m's training step on the
 #: 1x1 mesh (4 x 1024 tokens, top 8 of 32): the local capacity
 #: max(8, ceil(4096 * 8 / 32) * 2) = 2048, with the fill
@@ -1960,7 +2043,8 @@ def _check_moe_variant(moe_expert_ffn_ecd, tag):
               f"kernel with a fill, unpadded")
 
 
-def moe_phase(moe_expert_ffn_ecd, moe_expert_ffn_ref, seed: int = 0):
+def moe_phase(moe_expert_ffn_ecd, moe_expert_ffn_ref, seed: int = 0,
+              only=None):
     """moe_expert_ffn vs its plain version; the path shape is one MoE
     layer of the granite-moe-1b-a400m training step (4 x 1024 tokens,
     top 8 of 32 experts, capacity 1280). Each case prints its variant,
@@ -1969,7 +2053,10 @@ def moe_phase(moe_expert_ffn_ecd, moe_expert_ffn_ref, seed: int = 0):
     time on the same inputs. Cases with empty rows also run with the
     fill (each expert's live rows): the result must be the same bits,
     and rows past the fill must come out zero even where buf holds
-    values there; their bound counts the live rows only."""
+    values there; their bound counts the live rows only. A case whose
+    empty rows are a number draws each expert's fill around it (a share
+    of a wide router). ``only``: the names of the cases to run (all where
+    None)."""
     from repro_torch.kernels.moe_ffn import (live_tiles, plan, reset_counts,
                                              run_plan)
 
@@ -1999,8 +2086,10 @@ def moe_phase(moe_expert_ffn_ecd, moe_expert_ffn_ref, seed: int = 0):
         # 22.5 GB of expert weights: the f32-inside version is built
         # 16 experts at a time
         (MOE_DEEPSEEK, 256, 160, 7168, 2048, bf16, False, "wgmma"),
+        (MOE_DEEPSEEK_SHARE, 8, 8192, 7168, 2048, bf16, 256, "wgmma"),
     ] + [(case, e, c, d, ff, torch.float32, True, "fma")
          for (e, c, d, ff), case in EXAMPLE_MOE.items()]
+    cases = [c for c in cases if only is None or c[0] in only]
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def bmm_ffn(buf, wg, wu, wd):
@@ -2019,12 +2108,16 @@ def moe_phase(moe_expert_ffn_ecd, moe_expert_ffn_ref, seed: int = 0):
         wg, wu = rand(e, d, ff, std=d ** -0.5), rand(e, d, ff, std=d ** -0.5)
         wd = rand(e, ff, d, std=ff ** -0.5)
         fill = None
-        if empty:
+        if empty is True:
             # slots past each expert's fill are zero, and a few experts
             # got no token at all
             fill = torch.from_numpy(rng.integers(0, c + 1, size=e)).to(dev)
             fill[:max(1, e // 8)] = 0
             fill = fill.int()
+        elif empty:
+            fill = torch.from_numpy(rng.integers(
+                empty // 2, 3 * empty // 2 + 1, size=e)).to(dev).int()
+        if fill is not None:
             buf *= (torch.arange(c, device=dev)[None, :]
                     < fill[:, None])[..., None].to(dt)
         p = plan(e, c, d, ff, dt)
@@ -2504,7 +2597,8 @@ def devft_phase(arch, want_caps, per_kind, want_forward_layers,
     check(launches == want, f"{tag}: launches {launches}, want {want}")
     _check_lora_bwd(tag, want_bwd)
     _check_lora_variants(kernels[1], tag)
-    _check_flash_variant(kernels[2], tag)
+    _check_flash_variant(kernels[2], tag, "mma_sync"
+                         if cfg.attn_kind == "mla" else "wgmma")
     _check_ssd_variant(kernels[4], tag)
     _check_moe_variant(kernels[3], tag)
     check(forwards_layers == want_forward_layers,
@@ -2903,6 +2997,83 @@ def _kernels_vs_plain(tag, cfg, params, lora, batch):
           f"norms at the median, {max(diffs):.3g} at most, over "
           f"{len(diffs)} leaves (reported)")
     del kern, plain
+
+
+#: the deepseek-v3-8l.devft cell's step at 3 dense + 1 MoE layers:
+#: (layers, batch, sequence)
+PUBLISHED_STEP = (4, 16, 512)
+
+
+def deepseek_published_phase(seed: int = 0):
+    """DeepSeek-V3 under its published rules (``published_deepseek``) at
+    full width, 3 dense + 1 MoE layers, bf16, at the deepseek-v3-8l.devft
+    cell's 16 x 512 tokens: one loss and LoRA gradients through the
+    kernels under a profiler, with exact launches (``flash_attention``
+    one a MLA layer, all ``mma_sync`` at D 192; ``lora_matmul`` two a
+    layer; ``moe_expert_ffn`` one a MoE layer on the 8 held experts,
+    ``wgmma`` with a fill), no slot dropped, and the held share of the
+    routed slots printed beside its expectation of 8 / 256; then the
+    loss through the kernels against the plain path (``_kernels_vs_plain``).
+    Returns the launches."""
+    from repro_torch.analysis import tracing
+    from repro_torch.models import moe as Moe
+    from repro_torch.models import transformer as T
+
+    layers, b, s = PUBLISHED_STEP
+    tag = "deepseek-v3 published step"
+    cfg = published_deepseek(layers)
+    n_moe = layers - cfg.moe.first_dense_layers
+    check(Moe._capacity(cfg, b * s) >= b * s,
+          f"{tag}: capacity {Moe._capacity(cfg, b * s)} drops slots")
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_params(cfg, g)
+    _random_bias(params, g)
+    lora = _nonzero_lora(T, cfg, g, 32, 0.02)
+    rng = np.random.default_rng(np.random.SeedSequence((seed, 29)))
+    batch = {key: torch.from_numpy(rng.integers(
+        0, cfg.vocab, (b, s), dtype=np.int32)).cuda()
+        for key in ("tokens", "labels")}
+    kernels = _path_kernels()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        _reset_all_counts()
+        tracing.reset_counters()
+        t0 = time.perf_counter()
+        loss, _, grads = T.loss_and_lora_grads(cfg, params, lora, batch)
+        loss = float(loss)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = tracing.counters()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    want = {"flash_decode_bhrd": 0, "lora_matmul_fused": 2 * layers,
+            "flash_attention_bshd": layers, "moe_expert_ffn_ecd": n_moe,
+            "ssd_scan_bshp": 0}
+    check(launches == want, f"{tag}: launches {launches}, want {want}")
+    _check_lora_variants(kernels[1], tag)
+    _check_flash_variant(kernels[2], tag, "mma_sync")
+    _check_moe_variant(kernels[3], tag)
+    routed, held = counts["moe.routed_slots"], counts["moe.held_slots"]
+    check(routed == n_moe * b * s * cfg.moe.top_k
+          and counts["moe.dropped_slots"] == 0 and 0 < held < routed,
+          f"{tag}: MoE slots {routed} routed, {held} held, "
+          f"{counts['moe.dropped_slots']} dropped")
+    check(np.isfinite(loss) and all(bool(torch.isfinite(t).all())
+                                    for t in _leaves(grads)),
+          f"{tag}: loss or gradients not finite")
+    print(f"[{tag}] {layers} layers ({n_moe} MoE), B{b} S{s} bf16: loss "
+          f"{loss:.5f} and gradients in {wall:.2f} s (under the profiler); "
+          f"launches {launches}; held slots {held} of {routed} routed "
+          f"({100 * held / routed:.3f}%, expected 8/256 = 3.125% on "
+          f"average), 0 dropped")
+    del grads
+    torch.cuda.empty_cache()
+    _kernels_vs_plain(tag, cfg, params, lora, batch)
+    del params, lora
+    _reset_all_counts()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def vision_prefix_phase(params, cfg, lora, seed: int = 0):
@@ -3824,8 +3995,9 @@ DEVFT_RUNS = [
     # it the experts): stacks dense / moe (1, 1), (1, 1), (2, 1), (3, 1);
     # the MoE stack is never cut, so no stage copies its experts
     ("deepseek-v3-671b", [1, 2, 3, 4],
-     {"mla_mlp": {"lora_matmul_fused": 2},
-      "mla_moe": {"lora_matmul_fused": 2, "moe_expert_ffn_ecd": 1}}, 55, 4,
+     {"mla_mlp": {"lora_matmul_fused": 2, "flash_attention_bshd": 1},
+      "mla_moe": {"lora_matmul_fused": 2, "flash_attention_bshd": 1,
+                  "moe_expert_ffn_ecd": 1}}, 55, 4,
      {"flash_decode_bhrd": 4, "moe_expert_ffn_ecd": 1}),
     # full depth, text-only batches as in the JAX package (15.2 GB in
     # bf16): capacities from capacity_schedule(28, 4); then the vision
@@ -4191,6 +4363,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     parity_phase()
     prefill_vs_decode_phase()
+    deepseek_published_phase()
+    torch.cuda.empty_cache()
     train = train_phase()
     train_launches = train[-1]
     train_parity_phase(*train[:-1])

@@ -23,6 +23,11 @@ The sites, each under ``repro_torch/``:
   ``autograd.grad`` call) and ``step.adamw``;
 * the MoE block (``models/moe.py``): ``moe.route``, ``moe.dispatch``,
   ``moe.experts`` and ``moe.combine``;
+* MLA's training attention (``models/layers.py`` ``mla_attention``):
+  ``mla.latent`` (the down-projections, their norms and the rotations),
+  ``mla.expand`` (the up-projections and the shared rotary key's
+  concat) and ``mla.attend`` (the attention, with v's pad and the
+  output's slice where the flash kernel takes it);
 * the training kernels (``kernels/ops.py``): ``kernel.<name>`` around the
   forward's kernel call and ``kernel.<name>.backward`` around the
   backward, for ``lora_matmul``, ``flash_attention``, ``moe_expert_ffn``
@@ -33,7 +38,9 @@ Counters. :func:`counters` gathers the kernel wrappers' own call counts
 the wrapper keeps them, and ``lora_matmul_bwd.plain``, the backward calls
 on the card that did not take the input-gradient kernel; ``reset_counts``
 of each kernel module zeroes them) and the MoE slot counts
-``moe.routed_slots`` and ``moe.dropped_slots``: device int64
+``moe.routed_slots``, ``moe.dropped_slots`` and ``moe.held_slots`` (the
+routed slots whose expert the layer holds: all of them but in an expert
+share or on an expert-parallel rank): device int64
 accumulators that ``moe_block`` and ``moe_block_ep`` bump
 (:func:`count_moe`) only while spans are on, read with one
 device-to-host copy by :func:`counters`. With spans off they
@@ -98,24 +105,29 @@ def span(name: str):
     return _OFF
 
 
-def count_moe(keep: torch.Tensor, routed: Optional[torch.Tensor] = None
-              ) -> None:
-    """Add one MoE dispatch to ``moe.routed_slots`` and
-    ``moe.dropped_slots`` while spans are on. ``keep``: (S,) bool, the
-    slots that got a row; ``routed``: (S,) bool, the slots this block
-    routes (every slot where None). No host sync."""
+def count_moe(keep: torch.Tensor, routed: Optional[torch.Tensor] = None,
+              held: Optional[torch.Tensor] = None) -> None:
+    """Add one MoE dispatch to ``moe.routed_slots``,
+    ``moe.dropped_slots`` and ``moe.held_slots`` while spans are on.
+    ``keep``: (S,) bool, the slots that got a row; ``routed``: (S,) bool,
+    the slots this block routes (every slot where None); ``held``: (S,)
+    bool, the routed slots whose expert this block holds (every routed
+    slot where None). A routed slot held here that got no row dropped.
+    No host sync."""
     if not torch.autograd._profiler_enabled() or keep.is_meta:
         return
     acc = _MOE.get(keep.device)
     if acc is None:
-        acc = _MOE[keep.device] = torch.zeros(2, dtype=torch.int64,
+        acc = _MOE[keep.device] = torch.zeros(3, dtype=torch.int64,
                                               device=keep.device)
     if routed is None:
         acc[0].add_(keep.numel())
-        acc[1].add_((~keep).sum())
+        routed = torch.ones_like(keep)
     else:
         acc[0].add_(routed.sum())
-        acc[1].add_((routed & ~keep).sum())
+    held = routed if held is None else held
+    acc[1].add_((held & ~keep).sum())
+    acc[2].add_(held.sum())
 
 
 def _kernel_wrappers():
@@ -135,11 +147,12 @@ def counters() -> Dict[str, object]:
                 val = getattr(fn, key)
                 out[f"{name}.{key}"] = dict(val) if key == "variants" \
                     else val
-    routed = dropped = 0
+    routed = dropped = held = 0
     if _MOE:
-        routed, dropped = (int(v) for v in
-                           sum(acc.cpu() for acc in _MOE.values()))
+        routed, dropped, held = (int(v) for v in
+                                 sum(acc.cpu() for acc in _MOE.values()))
     out["moe.routed_slots"], out["moe.dropped_slots"] = routed, dropped
+    out["moe.held_slots"] = held
     return out
 
 

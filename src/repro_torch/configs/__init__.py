@@ -17,8 +17,10 @@ from repro_torch.configs.base import (  # noqa: F401
     ModelConfig,
     MoEConfig,
     ReducedSpec,
+    RopeScaling,
     pad_vocab,
     reduce_config,
+    shared_fields,
 )
 
 _ARCH_MODULES = {

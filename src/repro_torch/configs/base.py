@@ -50,6 +50,22 @@ class MLAConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
+    """The JAX package's fields, then the port's own (defaults keep the
+    JAX package's rules: a softmax router, a Switch loss, every routed
+    expert held here, slots dropped past ``capacity_factor``).
+
+    DeepSeek-V3's published rules switch on with ``scoring="sigmoid"``:
+    scores sigmoid(x W_r); selection on the scores plus the frozen
+    per-expert ``e_score_correction_bias``; the ``n_group`` groups of
+    experts ranked by the sum of their 2 best biased scores, the
+    ``topk_group`` best kept, top ``top_k`` inside them; weights the
+    unbiased scores normalised to sum 1, times ``routed_scale``; the
+    sequence-wise balance loss (coefficient ``router_aux_coef``) in place
+    of the Switch loss; and no drops (each held expert's buffer has a row
+    for every token). ``n_routed`` is the router's width over all
+    experts, of which this layer holds the ``n_experts`` from
+    ``first_expert`` on (an expert share)."""
+
     n_experts: int = 0
     top_k: int = 2
     d_ff_expert: int = 0
@@ -58,6 +74,36 @@ class MoEConfig:
     every: int = 1                  # jamba: MoE every `every`-th layer
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.001
+    # the port's own
+    scoring: str = "softmax"        # softmax | sigmoid
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scale: float = 1.0
+    n_routed: int = 0               # router width; 0 -> n_experts
+    first_expert: int = 0           # the first expert held here
+
+    @property
+    def router_width(self) -> int:
+        return self.n_routed or self.n_experts
+
+
+@dataclasses.dataclass(frozen=True)
+class RopeScaling:
+    """YaRN (arXiv:2309.00071) as DeepSeek-V3's ``rope_scaling`` states
+    it: the rotary frequencies blended between the original and the
+    original over ``factor`` along a linear ramp between the correction
+    dims of ``beta_fast`` and ``beta_slow`` rotations at
+    ``original_max_position_embeddings``; the tables times
+    mscale(mscale) / mscale(mscale_all_dim) and the softmax scale times
+    mscale(mscale_all_dim)², mscale(m) = 0.1 m ln(factor) + 1."""
+
+    type: str = "yarn"
+    factor: float = 1.0
+    original_max_position_embeddings: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +132,7 @@ class ModelConfig:
     qk_norm: bool = False
     qkv_bias: bool = False
     rope_theta: float = 1e6
+    rope_scaling: Optional[RopeScaling] = None   # the port's own (YaRN)
     sliding_window: Optional[int] = None   # static window (if arch has one)
     mla: Optional[MLAConfig] = None
     # mlp / moe
@@ -166,6 +213,31 @@ class ModelConfig:
         if shape.name == "long_500k" and self.attn_kind != "none":
             return LONG_CONTEXT_WINDOW
         return None
+
+
+#: the port's own fields, by dataclass, and the value that keeps the JAX
+#: package's rules
+PORT_ONLY = {
+    "ModelConfig": {"rope_scaling": None},
+    "MoEConfig": {f.name: f.default for f in dataclasses.fields(MoEConfig)
+                  if f.name in ("scoring", "n_group", "topk_group",
+                                "routed_scale", "n_routed", "first_expert")},
+}
+
+
+def shared_fields(cfg) -> dict:
+    """``dataclasses.asdict(cfg)`` without the port's own fields where they
+    keep the JAX package's rules: the dict a JAX package config of the
+    same model gives. A port-only field that is set stays in, so the
+    dicts then differ."""
+    def strip(obj):
+        if not dataclasses.is_dataclass(obj):
+            return obj
+        own = PORT_ONLY.get(type(obj).__name__, {})
+        return {f.name: strip(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)
+                if f.name not in own or getattr(obj, f.name) != own[f.name]}
+    return strip(cfg)
 
 
 @dataclasses.dataclass(frozen=True)

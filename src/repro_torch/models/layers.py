@@ -37,6 +37,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.analysis.tracing import span
 from repro_torch.kernels import dispatch, ops
 from repro_torch.kernels.common import NEG_INF
 
@@ -69,15 +70,66 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """positions: (B, S) int -> cos/sin (B, S, head_dim//2) float32."""
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                 scaling=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions: (B, S) int -> cos/sin (B, S, head_dim//2) float32.
+    ``scaling``: a ``RopeScaling`` (YaRN) or None (plain RoPE)."""
     half = head_dim // 2
     exps = torch.arange(half, dtype=torch.float32,
                         device=positions.device) / half
     inv_freq = 1.0 / (theta ** exps)
+    if scaling is not None:
+        inv_freq = yarn_inv_freq(inv_freq, head_dim, theta, scaling)
     ang = positions.float()[..., None] * inv_freq            # (B,S,half)
-    return torch.cos(ang), torch.sin(ang)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    if scaling is not None:
+        m = _yarn_mscale(scaling.factor, scaling.mscale) \
+            / _yarn_mscale(scaling.factor, scaling.mscale_all_dim)
+        if m != 1.0:
+            cos, sin = cos * m, sin * m
+    return cos, sin
+
+
+def _yarn_mscale(factor: float, mscale: float) -> float:
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def _yarn_dim(rotations: float, head_dim: int, theta: float,
+              length: int) -> float:
+    """The rotary dim whose frequency turns ``rotations`` times over
+    ``length`` positions."""
+    return (head_dim * math.log(length / (rotations * 2 * math.pi))
+            / (2 * math.log(theta)))
+
+
+def yarn_inv_freq(inv_freq: torch.Tensor, head_dim: int, theta: float,
+                  scaling) -> torch.Tensor:
+    """YaRN's frequencies: ``inv_freq`` (the fast dims, below the ramp)
+    blended into ``inv_freq / factor`` (the slow dims, above it) along a
+    linear ramp between the correction dims of ``beta_fast`` and
+    ``beta_slow`` rotations at the original length (DeepSeek-V3: dims 10
+    to 23 of 32)."""
+    n = scaling.original_max_position_embeddings
+    lo = max(math.floor(_yarn_dim(scaling.beta_fast, head_dim, theta, n)), 0)
+    hi = min(math.ceil(_yarn_dim(scaling.beta_slow, head_dim, theta, n)),
+             head_dim - 1)
+    if lo == hi:
+        hi += 0.001
+    ramp = torch.clamp((torch.arange(head_dim // 2, dtype=torch.float32,
+                                     device=inv_freq.device) - lo)
+                       / (hi - lo), 0, 1)
+    keep = 1.0 - ramp
+    return inv_freq / scaling.factor * (1 - keep) + inv_freq * keep
+
+
+def softmax_scale(cfg, head_dim: int) -> float:
+    """1/sqrt(head_dim), times YaRN's mscale(mscale_all_dim)² where the
+    config sets ``rope_scaling`` (DeepSeek-V3: 1.874)."""
+    scale = 1.0 / math.sqrt(head_dim)
+    rs = getattr(cfg, "rope_scaling", None)
+    if rs is not None and rs.mscale_all_dim:
+        scale *= _yarn_mscale(rs.factor, rs.mscale_all_dim) ** 2
+    return scale
 
 
 def mrope_cos_sin(positions: torch.Tensor, sections: Tuple[int, ...],
@@ -156,11 +208,12 @@ def model_backend(cfg) -> str:
 def _flash_eligible(q, k, v, q_offset, kv_valid_len) -> bool:
     """Whether this ``attend`` call fits the flash kernel's contract: no
     ragged-cache masking, zero query offset (prefill/train), square q/k
-    lengths, matching qk/v head dims and whole GQA groups."""
+    lengths, v's head dim at most q/k's (``attend`` pads a narrower v)
+    and whole GQA groups."""
     return (kv_valid_len is None
             and isinstance(q_offset, int) and q_offset == 0
             and q.shape[1] == k.shape[1]
-            and v.shape[-1] == q.shape[-1]
+            and v.shape[-1] <= q.shape[-1]
             and q.shape[2] % k.shape[2] == 0)
 
 
@@ -177,7 +230,10 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: (B, Sq, H, hd); k: (B, Sk, Hkv, hd); v: (B, Sk, Hkv, vd).
     ``q_offset`` is the absolute position of q[0]; ``kv_valid_len (B,)``
     masks ragged cache entries. ``backend`` routes eligible calls to the
-    ``flash_attention`` kernel (all f32 inside, output in ``q.dtype``).
+    ``flash_attention`` kernel (all f32 inside, output in ``q.dtype``);
+    a v narrower than q/k (MLA's 128 against 192) is zero-padded to their
+    head dim for it and the output sliced back, which is exact: the zero
+    columns give zero outputs.
     The plain math: scores are f32; a fully masked row gives zeros;
     probabilities are cast to ``v.dtype`` before the PV product, so the
     output is (B, Sq, H, vd) in ``v.dtype``.
@@ -189,8 +245,12 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     if dispatch.use_kernel(backend, dev) and _flash_eligible(
             q, k, v, q_offset, kv_valid_len):
-        return ops.flash_attention(q, k, v, causal=causal, window=window,
-                                   scale=scale, backend=backend)
+        vd = v.shape[-1]
+        if vd < hd:
+            v = torch.nn.functional.pad(v, (0, hd - vd))
+        out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  scale=scale, backend=backend)
+        return out if vd == hd else out[..., :vd]
     qg = (q * scale).reshape(b, sq, hkv, rep, hd)
     scores = _einsum("bqkrd,bskd->bkrqs", qg, k).float()  # (B,Hkv,rep,Sq,Sk)
 
@@ -405,26 +465,41 @@ def _mla_ckv(params, cfg, x, cos, sin):
 def mla_attention(params: dict, cfg, x: torch.Tensor, cos, sin, *,
                   lora=None, causal=True, window=None) -> torch.Tensor:
     """Whole-sequence MLA (training, prefill), keys and values expanded
-    from the latent. v's head dim differs from q/k's, so ``attend``
-    keeps it on the plain path (``_flash_eligible``); the backend still
-    routes the ``wq_b``/``wkv_b`` adapters to ``lora_matmul``."""
+    from the latent; the backend routes the ``wq_b``/``wkv_b`` adapters
+    to ``lora_matmul``, and ``attend`` takes the flash kernel on the card
+    (v's head dim padded there). Spans: ``mla.latent`` (the
+    down-projections, their norms and the rotations), ``mla.expand`` (the
+    up-projections and the shared rotary key's concat) and ``mla.attend``
+    (the attention)."""
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
     backend = model_backend(cfg)
-    q_nope, q_rope = _mla_q(params, cfg, x, cos, sin, lora, backend=backend)
-    c, k_rope = _mla_ckv(params, cfg, x, cos, sin)
+    lq = lora.get("wq_b") if lora else None
     lkv = lora.get("wkv_b") if lora else None
-    kv = _proj(c, params["wkv_b"], None, lkv, backend=backend)
-    kv = kv.reshape(b, s, h, m.qk_nope_head_dim + m.v_head_dim)
-    k_nope, v = torch.split(kv, [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
-    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-        b, s, h, m.qk_rope_head_dim)], dim=-1)
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    out = attend(q, k, v, causal=causal, window=window,
-                 scale=1.0 / math.sqrt(m.qk_nope_head_dim
-                                       + m.qk_rope_head_dim),
-                 backend=backend)
+    with span("mla.latent"):
+        qc = rms_norm(_matmul(x, params["wq_a"]), params["q_norm"],
+                      cfg.norm_eps)
+        c, k_rope = _mla_ckv(params, cfg, x, cos, sin)
+    with span("mla.expand"):
+        q = _proj(qc, params["wq_b"], None, lq, backend=backend)
+        q = q.reshape(b, s, h, qk)
+        q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim,
+                                         m.qk_rope_head_dim], dim=-1)
+        kv = _proj(c, params["wkv_b"], None, lkv, backend=backend)
+        kv = kv.reshape(b, s, h, m.qk_nope_head_dim + m.v_head_dim)
+        k_nope, v = torch.split(kv, [m.qk_nope_head_dim, m.v_head_dim],
+                                dim=-1)
+    with span("mla.latent"):
+        q_rope = apply_rope(q_rope, cos, sin)
+    with span("mla.expand"):
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            b, s, h, m.qk_rope_head_dim)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+    with span("mla.attend"):
+        out = attend(q, k, v, causal=causal, window=window,
+                     scale=softmax_scale(cfg, qk), backend=backend)
     return _matmul(out.reshape(b, s, -1), params["wo"])
 
 
@@ -466,7 +541,7 @@ def mla_decode(params: dict, cfg, x: torch.Tensor, cache: dict, pos, cos,
         q_abs = _einsum("bqhn,brhn->bqhr", q_nope, w_uk_k)
     else:
         q_abs = _einsum("bqhn,rhn->bqhr", q_nope, w_uk_k)   # (B,1,H,rank)
-    scale = 1.0 / math.sqrt(nope + m.qk_rope_head_dim)
+    scale = softmax_scale(cfg, nope + m.qk_rope_head_dim)
     valid = torch.clamp(pos + 1, max=cap).to(torch.int32)
     q_full = torch.cat([q_abs, q_rope], dim=-1)         # (B,1,H,rank+rope)
     kv_lat = torch.cat([c, kr], dim=-1)[:, :, None, :]

@@ -27,6 +27,21 @@ token passes through), in training, prefill and decoding; at decode
 ``moe_block`` runs on the (B, d) tokens of one step, so the expert FFN
 sees capacity buffers of 8 rows (the floor of ``_capacity``).
 
+The registry configs keep the JAX package's rules: a softmax router
+with a Switch loss, every routed expert held, slots dropped past a
+capacity of 1.25x (granite and jamba run them; deepseek-v3-671b's
+registry config too). ``MoEConfig``'s own fields switch on DeepSeek-V3's
+published ones (the benchmark's ``deepseek-v3-8l`` sets them):
+``scoring="sigmoid"`` with ``n_group``/``topk_group`` and
+``routed_scale`` (the grouped sigmoid router and its frozen
+``e_score_correction_bias``, the sequence-wise balance loss over
+``moe_block``'s ``batch_shape``, and a buffer row for every token, so
+no slot drops) and ``n_routed`` / ``first_expert`` (an expert share:
+the router over all ``n_routed`` experts, this layer holding
+``n_experts`` of them, the positions counted over the held experts
+alone). With the defaults the softmax
+path's bits are the JAX package's, as before.
+
 ``moe_block_ep`` is the JAX package's expert-parallel ``shard_map`` path
 on a ``DeviceMesh``: each rank of the ``model`` axis runs the experts it
 owns on the tokens it holds (its shard of the data axes, the same on
@@ -43,6 +58,7 @@ import torch.distributed as dist
 
 from repro_torch.analysis.tracing import count_moe, span
 from repro_torch.kernels import dispatch, ops, ref
+from repro_torch.kernels.common import NEG_INF
 from repro_torch.models.layers import _randn, init_mlp, mlp, model_backend
 
 #: the plain version of the expert FFN (the kernel's ``reference``)
@@ -50,46 +66,97 @@ expert_ffn_reference = ref.moe_expert_ffn_ref
 
 
 def init_moe(gen: torch.Generator, cfg, dtype, lead=()) -> dict:
-    """Router (f32) and expert weights; ``lead`` prepends stack axes."""
+    """Router (f32, over all ``router_width`` experts) and the weights of
+    the ``n_experts`` experts held here; ``lead`` prepends stack axes.
+    The sigmoid router adds ``e_score_correction_bias`` (f32, one a
+    routed expert, zeros here: a base weight the configuration's
+    initialiser sets), which only selection reads; it is frozen and
+    gets no adapter, as every base weight."""
     m = cfg.moe
     d, e, ff = cfg.d_model, m.n_experts, m.d_ff_expert
     si, so = 1.0 / math.sqrt(d), 1.0 / math.sqrt(ff)
     p = {
-        "router": _randn(gen, (*lead, d, e), torch.float32, si),
+        "router": _randn(gen, (*lead, d, m.router_width), torch.float32, si),
         "wg": _randn(gen, (*lead, e, d, ff), dtype, si),
         "wu": _randn(gen, (*lead, e, d, ff), dtype, si),
         "wd": _randn(gen, (*lead, e, ff, d), dtype, so),
     }
+    if m.scoring == "sigmoid":
+        p["e_score_correction_bias"] = torch.zeros(
+            (*lead, m.router_width), dtype=torch.float32, device=gen.device)
     if m.n_shared_experts:
         p["shared"] = init_mlp(gen, d, ff * m.n_shared_experts, dtype,
                                lead=lead)
     return p
 
 
-def router_topk(params, cfg, x):
+def router_topk(params, cfg, x, batch_shape=None):
     """Returns (weights (T,k), experts (T,k) int64, aux_loss scalar).
 
-    The top k by a stable descending sort: among equal probabilities the
-    lower expert index comes first, as in ``jax.lax.top_k``."""
+    ``softmax`` scoring: the top k probabilities by a stable descending
+    sort (among equal probabilities the lower expert index first, as in
+    ``jax.lax.top_k``), normalised to sum 1. ``sigmoid`` scoring
+    (DeepSeek-V3's ``noaux_tc``): scores sigmoid(x W_r); selection on the
+    scores plus ``e_score_correction_bias``, inside the ``topk_group`` of
+    ``n_group`` groups whose 2 best biased scores sum highest (ties to the
+    lower index, groups and experts alike); weights the chosen experts'
+    unbiased scores, normalised to sum 1, times ``routed_scale``.
+    Experts are indices over all ``router_width``.
+
+    The aux loss: with softmax scoring the Switch loss (E Σ_e mean
+    prob_e · share of slots_e, the JAX package's), with sigmoid scoring
+    DeepSeek-V3's sequence-wise balance loss (arXiv:2412.19437
+    eq. 17-20: per sequence of ``batch_shape`` (B, S),
+    Σ_e f_e P_e with f_e = N/(k S) · the sequence's slots on e and P_e
+    the mean over its tokens of the scores normalised to sum 1; the mean
+    over sequences), times ``router_aux_coef``."""
     m = cfg.moe
-    t = x.shape[0]
-    logits = x.float() @ params["router"]                         # (T,E)
-    probs = torch.softmax(logits, dim=-1)
-    w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    w, idx = w[:, :m.top_k], idx[:, :m.top_k]
-    w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
-    # Switch-style load-balance auxiliary loss
-    me = probs.mean(dim=0)                                        # (E,)
-    ce = _one_hot(idx.reshape(-1), m.n_experts).sum(dim=0).float() \
-        / (t * m.top_k)
-    aux = m.n_experts * torch.sum(me * ce) * m.router_aux_coef
+    t, n, k = x.shape[0], m.router_width, m.top_k
+    logits = x.float() @ params["router"]                         # (T,N)
+    if m.scoring == "sigmoid":
+        scores = torch.sigmoid(logits)
+        choice = scores + params["e_score_correction_bias"]
+        if m.n_group > 1:
+            groups = choice.reshape(t, m.n_group, n // m.n_group)
+            rank = torch.topk(groups, 2, dim=-1).values.sum(dim=-1)
+            _, best = torch.sort(rank, dim=-1, descending=True, stable=True)
+            kept = torch.zeros_like(rank, dtype=torch.bool).scatter(
+                1, best[:, :m.topk_group], True)
+            choice = choice.masked_fill(
+                ~kept.repeat_interleave(n // m.n_group, dim=1), NEG_INF)
+        _, idx = torch.sort(choice, dim=-1, descending=True, stable=True)
+        idx = idx[:, :k]
+        w = scores.gather(1, idx)
+        w = w / (w.sum(dim=-1, keepdim=True) + 1e-20) * m.routed_scale
+        # the sequence-wise balance loss
+        probs = scores / scores.sum(dim=-1, keepdim=True)
+        b, s = batch_shape or (1, t)
+        slots = torch.zeros((b, n), dtype=torch.float32, device=x.device)
+        slots.scatter_add_(1, idx.reshape(b, s * k),
+                           torch.ones((b, s * k), device=x.device))
+        f = slots * (n / (k * s))
+        aux = (f * probs.reshape(b, s, n).mean(dim=1)).sum(dim=-1).mean() \
+            * m.router_aux_coef
+    else:
+        probs = torch.softmax(logits, dim=-1)
+        w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+        w, idx = w[:, :k], idx[:, :k]
+        w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+        # Switch-style load-balance auxiliary loss
+        me = probs.mean(dim=0)                                    # (E,)
+        ce = _one_hot(idx.reshape(-1), n).sum(dim=0).float() / (t * k)
+        aux = n * torch.sum(me * ce) * m.router_aux_coef
     return w, idx, aux
 
 
 def _capacity(cfg, n_tokens: int) -> int:
     """Slots per expert: rounded up to 8, at least 8 (the JAX package's
-    rule; it decides which slots drop)."""
+    rule; it decides which slots drop). Under DeepSeek-V3's sigmoid
+    router, which drops nothing, a row for every token: a token routes at
+    most one slot to an expert, so no expert's slots can pass it."""
     m = cfg.moe
+    if m.scoring == "sigmoid":
+        return max(8, -(-n_tokens // 8) * 8)
     c = int(math.ceil(n_tokens * m.top_k / m.n_experts * m.capacity_factor))
     return max(8, -(-c // 8) * 8)
 
@@ -100,10 +167,14 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     return (idx[:, None] == torch.arange(n, device=idx.device)).int()
 
 
-def _dispatch_indices(idx: torch.Tensor, n_experts: int, capacity: int):
+def _dispatch_indices(idx: torch.Tensor, n_experts: int, capacity: int,
+                      held: Optional[torch.Tensor] = None):
     """slot -> (expert, position-in-expert) with capacity dropping.
 
-    idx: (T*k,) expert id per slot, slots in token-major order. Returns
+    idx: (T*k,) expert id per slot, slots in token-major order; ``held``
+    (T*k,) bool, where given, marks the slots whose expert this layer
+    holds (``idx`` then counts from the first held expert, and the
+    others take no row and count nowhere). Returns
     (pos (T*k,), keep (T*k,) bool, fill (E,) int32): a slot's position
     counts the earlier slots routed to the same expert; ``fill[e]`` is
     how many rows of expert e's buffer the kept slots take, min(count,
@@ -112,9 +183,17 @@ def _dispatch_indices(idx: torch.Tensor, n_experts: int, capacity: int):
     expert (the (T*k, E) layout's scan over the outer axis took ~6 ms per
     layer at the training path's shape); its last column is each
     expert's count, so the fill costs no host sync."""
+    if held is not None:
+        # an absent expert's slot one-hots to a zero row: it counts
+        # nowhere, so the scan is (E held, T*k)
+        idx = torch.where(held, idx, n_experts)
     counts = _one_hot(idx, n_experts).T.contiguous().cumsum(dim=1) - 1
+    if held is not None:
+        idx = torch.where(held, idx, 0)
     pos = counts.gather(0, idx[None, :])[0].long()
     keep = pos < capacity
+    if held is not None:
+        keep = keep & held
     fill = torch.clamp(counts[:, -1] + 1, max=capacity).int()
     return pos, keep, fill
 
@@ -163,8 +242,19 @@ def _run_experts(cfg, x, w, eidx, pos, keep, fill, cap, wg, wu, wd):
 
 def moe_block(params: dict, cfg, x: torch.Tensor, *,
               capacity: Optional[int] = None, mesh=None,
-              constrain: bool = False):
+              constrain: bool = False, batch_shape=None):
     """x: (T, d) flattened tokens -> (y (T, d), aux_loss).
+
+    ``batch_shape`` (B, S) with B S = T gives the sequence-wise aux loss
+    its sequences (one sequence of T where None).
+
+    An expert share (``router_width`` over ``n_experts``, DeepSeek-V3's
+    8 of 256 a chip under 32-way expert parallelism): the router runs
+    over every expert, and the layer computes the part of the result its
+    ``n_experts`` experts from ``first_expert`` on give, for the slots
+    routed to them; what absent experts would add is left out (on one
+    card the layer runs without its exchange). A shared expert is added
+    once.
 
     ``mesh`` and ``constrain`` are the JAX package's ``gather_sharded``
     path: there they pin the dispatch buffers' layout
@@ -176,11 +266,16 @@ def moe_block(params: dict, cfg, x: torch.Tensor, *,
     t = x.shape[0]
     cap = capacity or _capacity(cfg, t)
     with span("moe.route"):
-        w, idx, aux = router_topk(params, cfg, x)                 # (T,k)
+        w, idx, aux = router_topk(params, cfg, x, batch_shape)     # (T,k)
     flat_idx = idx.reshape(-1)                                    # (T*k,)
+    held = None
     with span("moe.dispatch"):
-        pos, keep, fill = _dispatch_indices(flat_idx, m.n_experts, cap)
-    count_moe(keep)
+        if m.router_width != m.n_experts:
+            held = (flat_idx >= m.first_expert) \
+                & (flat_idx < m.first_expert + m.n_experts)
+            flat_idx = flat_idx - m.first_expert
+        pos, keep, fill = _dispatch_indices(flat_idx, m.n_experts, cap, held)
+    count_moe(keep, held=held)
     y = _run_experts(cfg, x, w, flat_idx, pos, keep, fill, cap,
                      params["wg"], params["wu"], params["wd"])
     if "shared" in params:
@@ -264,7 +359,7 @@ def moe_block_ep(params: dict, cfg, x: torch.Tensor, *, mesh,
         loc_idx = torch.where(local, flat_idx - lo, e_local)  # drop bin
         pos, keep, fill = _dispatch_indices(loc_idx, e_local + 1, cap_l)
         keep = keep & local
-    count_moe(keep, local)
+    count_moe(keep, local, held=local)
     xs, ws = x, w
     if tp > 1:
         group = mesh.get_group(tp_axis)

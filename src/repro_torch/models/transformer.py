@@ -254,7 +254,7 @@ def _ffn(p, cfg, kind, x, *, moe_path="gather", mesh=None):
             y, aux = Moe.moe_block(p["ffn"], cfg, flat, mesh=mesh,
                                    constrain=True)
         else:
-            y, aux = Moe.moe_block(p["ffn"], cfg, flat)
+            y, aux = Moe.moe_block(p["ffn"], cfg, flat, batch_shape=(b, s))
         return y.reshape(b, s, d), aux
     return Lyr.mlp(p["ffn"], x), torch.zeros((), dtype=torch.float32,
                                              device=x.device)
@@ -328,7 +328,8 @@ def _embed_inputs(cfg, params, batch):
         cos = sin = None
     else:
         cos, sin = Lyr.rope_cos_sin(Lyr.text_positions(b, s, device=x.device),
-                                    rope_dim(cfg), cfg.rope_theta)
+                                    rope_dim(cfg), cfg.rope_theta,
+                                    cfg.rope_scaling)
     return x, cos, sin, n_prefix
 
 
@@ -670,7 +671,7 @@ def decode_step(cfg, params, lora, token, cache, *, moe_path="gather",
                                      cfg.rope_theta)
     elif rope_dim(cfg):
         cos, sin = Lyr.rope_cos_sin(pos[:, None], rope_dim(cfg),
-                                    cfg.rope_theta)
+                                    cfg.rope_theta, cfg.rope_scaling)
     else:
         cos = sin = torch.zeros((b, 1, 1), dtype=torch.float32,
                                 device=x.device)
